@@ -1,0 +1,38 @@
+"""Run-time knobs of the read engine.
+
+Read dynamically, not at import: tests and launchers flip them per run.
+The environment variable names are the reference package's, so one
+setting drives both packages.
+
+``REPRO_READER_BACKEND`` — span I/O backend for core.reader:
+    "auto"   — io_uring when the kernel supports it, else "thread"
+    "uring"  — raw io_uring submission queue (Linux; depth-controlled
+               in-flight span windows, one enter() per window)
+    "thread" — synchronous preadv per span (the portable fallback)
+    "mmap"   — map whole files, serve records as zero-copy views of the
+               page cache (no pread syscalls at all; opt-in: span/byte
+               accounting semantics differ from the pread backends)
+``REPRO_READER_DEPTH`` — target in-flight spans per uring submission window
+    (default 32; clamped to the ring size).
+``REPRO_VERIFY_BACKEND`` — id-recompute/compare mode for VerifyBatcher:
+    "auto" (vectorized recompute; digest compare on a CUDA verifier, string
+    compare on a CPU one), "vector", "process" (fork-pool recompute off the
+    GIL), "string" / "digest" (per-record reference modes, combining
+    disabled).
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def reader_backend() -> str:
+    return os.environ.get("REPRO_READER_BACKEND", "auto")
+
+
+def reader_depth() -> int:
+    return int(os.environ.get("REPRO_READER_DEPTH", "32"))
+
+
+def verify_backend() -> str:
+    return os.environ.get("REPRO_VERIFY_BACKEND", "auto")
