@@ -10,8 +10,14 @@
    which 435,413 (the extracted count) are drawn from the plane, plus a
    24-bit table with duplicate runs; ``hash_mix`` over the 1,048,576 x 128
    verify batch that ``compare_ids_batch`` forms for 435,413 pairs.  Outputs
-   must match bit for bit.  Prints each kernel's time, the plain version's,
-   a PyTorch library call's where one computes the same function, and the
+   must match bit for bit.  ``tanimoto`` top-k against its plain version,
+   scores as raw float32 bits and rows exactly: ``pubchem``, a plane of
+   176,929,690 random 1,024-bit fingerprints (22.6 GB, generated on the
+   card in chunks) screened by 64 queries at k = 32; ``ties``, 4,194,304
+   rows drawn from 4,096 distinct fingerprints, shuffled, screened by 256
+   queries (rows of the plane, all-zero queries, random ones) at k = 1,
+   32 and 1,024.  Prints each kernel's time, the plain version's, a
+   PyTorch library call's where one computes the same function, and the
    least time the card could take (its bound).
 3. The funnel end to end on the card through ``repro_torch.launch.funnel``
    (corpus, index, publish, intersect, lookup_batch, extract + verify) at
@@ -19,7 +25,15 @@
    collisions the device verifier must reject as the string verifier does,
    with every kernel's launch count set to 0 just before
    and read just after: each kernel must have launched on that path.
-4. A ``{"kernels": [...]}`` line, the card line, and as the last line
+4. The query service on the funnel's corpus and store through
+   ``repro_torch.launch.serve_index`` on the card (2 replicas, 8 clients,
+   2 s per arm): lookup mode with its ``svc.fetch == serial extract``
+   parity gate, and similarity mode at k = 8 with its ``svc.similar ==
+   per-query similar_batch(probe="host")`` gate (the card's kernel against
+   the host's plain version).  Launch counts are set to 0 before the phase
+   and read after it: ``sorted_probe``, ``hash_mix`` and ``tanimoto`` must
+   each have launched there.
+5. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 
 Needs one CUDA card; exits non-zero without one.
@@ -31,6 +45,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -53,6 +68,18 @@ VERIFY_ROWS = 1 << 20      # 2 x 435,413 rows bucketed to a power of two
 VERIFY_LANES = 128         # 112 lanes (431-byte ids) bucketed
 HASH_OPS_PER_LANE = 19     # integer ops per (row, lane) in hash_mix's loop
 FUNNEL_RECORDS = 100_000   # 8 files x 12,500 records, about 207 MB of SDF
+FP_WORDS = 32              # 1,024-bit fingerprints (the store's default)
+SIM_QUERIES = 64           # pubchem case: a service batch of queries
+SIM_K = 32                 # the service's similar_top_k
+TIES_ROWS = 1 << 22        # ties case: 4,194,304 rows ...
+TIES_DISTINCT = 4096       # ... drawn from 4,096 distinct fingerprints
+TIES_QUERIES = 256
+TIES_KS = (1, 32, 1024)
+PLANE_CHUNK = 1 << 23      # rows generated (and counted) per step on the card
+PLAIN_ELEMS = 1 << 26      # (query, row) pairs per block of the plain version
+# __popc throughput of compute capability 9.0: 16 results per clock per SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput table)
+POPC_PER_CLOCK_PER_SM = 16
 M32 = 0xFFFFFFFF
 SIGN = -(2**63)
 
@@ -81,6 +108,29 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(fn):
+    """``(fn(), device milliseconds of that one call)`` (CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def popc_per_s() -> float:
+    """The card's __popc rate: 16 per clock per SM, at its maximum SM clock
+    (``nvidia-smi clocks.max.sm``) over all its SMs."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
 
 
 def keys_to_pairs(keys: torch.Tensor) -> torch.Tensor:
@@ -144,6 +194,106 @@ def probe_case(name, keys, qk, reps, note):
                 bound_by=by, max_abs_err=err)
 
 
+def random_u32(g, shape, dev) -> torch.Tensor:
+    from repro_torch.kernels.hash_mix.ref import to_u32
+
+    return to_u32(torch.randint(0, 2**32, shape, generator=g, device=dev,
+                                dtype=torch.int64)).contiguous()
+
+
+def tanimoto_case(name, q, db, dc, ks, reps, popc_rate):
+    """Hold tanimoto's kernel to its plain version, bit for bit, at each k;
+    time both at the first k."""
+    from repro_torch.kernels.tanimoto.kernel import tanimoto_topk_cuda
+    from repro_torch.kernels.tanimoto.ref import row_counts, tanimoto_topk_ref
+
+    qc = row_counts(q)
+    n, w = db.shape
+    nq = q.shape[0]
+    chunk = max(1 << 16, PLAIN_ELEMS // nq)  # bounds the plain version's blocks
+    out = None
+    for k in ks:
+        (s_k, i_k), ms = timed(lambda: tanimoto_topk_cuda(q, db, k, qc, dc))
+        (s_r, i_r), plain = timed(
+            lambda: tanimoto_topk_ref(q, db, k, qc, dc, db_chunk=chunk))
+        bits_k, bits_r = s_k.view(torch.int32), s_r.view(torch.int32)
+        if not (torch.equal(bits_k, bits_r) and torch.equal(i_k, i_r)):
+            bad = int((bits_k != bits_r).sum() + (i_k != i_r).sum())
+            fail(f"tanimoto {name} k={k}: kernel disagrees with plain version "
+                 f"({bad} outputs)")
+        err = float((s_k - s_r).abs().max())
+        ties = int((s_k[:, 1:] == s_k[:, :-1]).sum()) if k > 1 else 0
+        if out is None:
+            ms = cuda_ms(lambda: tanimoto_topk_cuda(q, db, k, qc, dc), reps,
+                         warmup=1)
+            nbytes = n * (4 * w + 4) + nq * (4 * w + 4) + nq * k * 8
+            ops = nq * n * w
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / popc_rate * 1e3
+            b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            print(f"tanimoto[{name}]: N={n} W={w} Q={nq} k={k} bit-exact "
+                  f"({ties} equal-score neighbours in the top-k); "
+                  f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms=null "
+                  f"bytes={nbytes} popcounts={ops} popc_per_s={popc_rate:.4g} "
+                  f"bound_ms={b:.6f} ({by})", flush=True)
+            out = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
+                       bound_by=by, max_abs_err=err)
+        else:
+            print(f"tanimoto[{name}]: k={k} bit-exact ({ties} equal-score "
+                  f"neighbours); kernel_ms={ms:.6f} (one call) "
+                  f"plain_ms={plain:.6f}", flush=True)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        del s_k, i_k, s_r, i_r, bits_k, bits_r
+    return out
+
+
+def tanimoto_phase(seed: int):
+    """``pubchem`` and ``ties`` cases of the tanimoto kernel."""
+    from repro_torch.kernels.tanimoto.ref import row_counts
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    rate = popc_per_s()
+
+    # -- pubchem: the plane at PubChem's row count, generated in chunks -----
+    t0 = time.perf_counter()
+    db = torch.empty((PUBCHEM, FP_WORDS), dtype=torch.uint32, device=dev)
+    dc = torch.empty(PUBCHEM, dtype=torch.int32, device=dev)
+    for lo in range(0, PUBCHEM, PLANE_CHUNK):
+        hi = min(lo + PLANE_CHUNK, PUBCHEM)
+        chunk = random_u32(g, (hi - lo, FP_WORDS), dev)
+        db.view(torch.int32)[lo:hi].copy_(chunk.view(torch.int32))
+        dc[lo:hi] = row_counts(chunk)
+        del chunk
+    q = random_u32(g, (SIM_QUERIES, FP_WORDS), dev)
+    rows = torch.randint(0, PUBCHEM, (SIM_QUERIES // 4,), generator=g, device=dev)
+    q.view(torch.int32)[: SIM_QUERIES // 4] = db.view(torch.int32)[rows]
+    torch.cuda.synchronize()
+    print(f"tanimoto[pubchem]: plane {PUBCHEM} x {FP_WORDS} words "
+          f"({PUBCHEM * (4 * FP_WORDS + 4)} bytes) made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    main = tanimoto_case("pubchem", q, db, dc, (SIM_K,), reps=3, popc_rate=rate)
+    del db, dc, q, rows
+    torch.cuda.empty_cache()
+
+    # -- ties: 4,096 distinct fingerprints, each about 1,024 times ----------
+    base = random_u32(g, (TIES_DISTINCT, FP_WORDS), dev)
+    base.view(torch.int32)[0] = 0  # all-zero rows: u = 0 against zero queries
+    pick = torch.randint(0, TIES_DISTINCT, (TIES_ROWS,), generator=g, device=dev)
+    db = base.view(torch.int32)[pick].view(torch.uint32).contiguous()
+    dc = row_counts(db)
+    q = random_u32(g, (TIES_QUERIES, FP_WORDS), dev)
+    qi = q.view(torch.int32)
+    qi[: TIES_QUERIES // 2] = db.view(torch.int32)[
+        torch.randint(0, TIES_ROWS, (TIES_QUERIES // 2,), generator=g, device=dev)]
+    qi[TIES_QUERIES // 2: TIES_QUERIES // 2 + 16] = 0
+    tanimoto_case("ties", q, db, dc, TIES_KS, reps=3, popc_rate=rate)
+    del base, pick, db, dc, q, qi
+    torch.cuda.empty_cache()
+    return main
+
+
 def kernel_phase(seed: int):
     from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
     from repro_torch.kernels.hash_mix.ref import hash_mix_ref, to_u32
@@ -204,6 +354,38 @@ def kernel_phase(seed: int):
     return main, hm
 
 
+def serving_phase(serve_index, work: Path, wrappers, card: str):
+    """The query service on the funnel's corpus and store, lookup mode then
+    similarity mode; returns each kernel's launches over the phase."""
+    common = ["--store", str(work / "store"), "--corpus", str(work / "corpus"),
+              "--device", "cuda", "--replicas", "2", "--clients", "8",
+              "--seconds", "2"]
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    look = serve_index.run(serve_index.build_parser().parse_args(common))
+    sim = serve_index.run(serve_index.build_parser().parse_args(
+        common + ["--similarity", "--similar-k", "8"]))
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    for mode, out in (("lookup", look), ("similarity", sim)):
+        if not out.get("parity"):
+            fail(f"serve_index {mode} mode ran no parity gate")
+        for arm in ("service", "naive"):
+            r = out[arm]
+            if r["errors"]:
+                fail(f"serve_index {mode} {arm}: {r['errors']} requests raised")
+            unit = "lookups/s" if mode == "lookup" else "similarity queries/s"
+            print(f"serve_index[{mode}] {arm}: {r['per_s']:.1f} {unit}, "
+                  f"p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
+                  f"{r['requests']} requests; card: {card}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{name} was not launched in the serving phase")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one card")
     ap.add_argument("--seed", type=int, default=0)
@@ -215,6 +397,8 @@ def main() -> None:
         from repro_torch.kernels import build
         from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
         from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
+        from repro_torch.kernels.tanimoto.kernel import tanimoto_topk_cuda
+        from repro_torch.launch import serve_index
         from repro_torch.launch.funnel import run_funnel
     except ImportError as e:
         fail(f"the port's package is not beside this script ({e})")
@@ -236,19 +420,26 @@ def main() -> None:
 
     t0 = time.perf_counter()
     probe, hm = kernel_phase(args.seed)
+    tani = tanimoto_phase(args.seed)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    sorted_probe_cuda.launches = 0
-    hash_mix_cuda.launches = 0
-    summary = run_funnel(FUNNEL_RECORDS, seed=args.seed, device="cuda",
-                         log=lambda s: print(f"funnel: {s}", flush=True))
-    launches = {"sorted_probe": sorted_probe_cuda.launches,
-                "hash_mix": hash_mix_cuda.launches}
-    print(f"funnel summary: {json.dumps(summary)}", flush=True)
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"{name} was not launched on the funnel's path")
-    print(f"funnel launches: {json.dumps(launches)}", flush=True)
+    wrappers = {"sorted_probe": sorted_probe_cuda, "hash_mix": hash_mix_cuda,
+                "tanimoto": tanimoto_topk_cuda}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        for fn in wrappers.values():
+            fn.launches = 0
+        summary = run_funnel(FUNNEL_RECORDS, seed=args.seed, device="cuda",
+                             log=lambda s: print(f"funnel: {s}", flush=True),
+                             workdir=work)
+        funnel_launches = {n: wrappers[n].launches
+                           for n in ("sorted_probe", "hash_mix")}
+        print(f"funnel summary: {json.dumps(summary)}", flush=True)
+        for name, n in funnel_launches.items():
+            if n == 0:
+                fail(f"{name} was not launched on the funnel's path")
+        print(f"funnel launches: {json.dumps(funnel_launches)}", flush=True)
+
+        launches = serving_phase(serve_index, Path(work), wrappers, card)
 
     kernels = [
         dict(name="sorted_probe", route="cuda",
@@ -259,6 +450,10 @@ def main() -> None:
              source="src/repro_torch/csrc/hash_mix.cu",
              replaces="src/repro/kernels/hash_mix/kernel.py:65",
              launches=launches["hash_mix"], **hm),
+        dict(name="tanimoto", route="cuda",
+             source="src/repro_torch/csrc/tanimoto.cu",
+             replaces="src/repro/kernels/tanimoto/kernel.py:135",
+             launches=launches["tanimoto"], **tani),
     ]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

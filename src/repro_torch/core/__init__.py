@@ -12,8 +12,9 @@ Record substrate (SDF dialect)             → :mod:`repro_torch.core.records`
 Synthetic corpus (scale model of PubChem)  → :mod:`repro_torch.core.sdfgen`
 Packing layer (ids → uint32 lanes)         → :mod:`repro_torch.core.packing`
 Sharded query service (sorted_probe)       → :mod:`repro_torch.core.store`
+Similarity search (tanimoto)               → :mod:`repro_torch.core.store`
 Bloom-filter prefilter sidecars            → :mod:`repro_torch.core.bloom`
-Fingerprint bit-planes (store sidecars)    → :mod:`repro_torch.core.fingerprint`
+Fingerprint bit-planes (similarity)        → :mod:`repro_torch.core.fingerprint`
 """
 
 from .cache import CacheStats, RecordCache
@@ -52,6 +53,7 @@ from .store import (
     QueryStats,
     candidate_runs,
     digest_u64,
+    merge_similar_topk,
     save_sharded,
     shard_of,
 )

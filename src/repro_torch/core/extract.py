@@ -172,7 +172,8 @@ def extract(
     backend=None,   # SpanBackend | name | None (REPRO_READER_BACKEND)
     depth: Optional[int] = None,   # in-flight spans per worker (uring)
     verifier=None,  # shared repro_torch.core.verify.VerifyBatcher
-    device: DeviceLike = "cuda",
+    service=None,  # repro_torch.service.QueryService — scheduler-coalesced plan path
+    device: Optional[DeviceLike] = None,
 ) -> ExtractionResult:
     """Algorithm 3: seek-extract every target through the index.
 
@@ -187,18 +188,39 @@ def extract(
     ``cache`` (a :class:`~repro_torch.core.cache.RecordCache`) serves repeat
     fetches without re-reading — see :mod:`repro_torch.core.reader`.
 
+    ``service`` (a :class:`repro_torch.service.QueryService`) replaces the
+    direct ``index`` probe with the service's scheduler-coalesced lookup
+    path — concurrent extractions then share probe batches, the service's
+    record cache (unless ``cache`` overrides it), and its long-lived read
+    pool; ``index`` may be ``None``.  Output is byte-identical either way.
+
     The access-pattern ablations always take the serial loop, because the
     engine has no unsorted/ungrouped mode (it coalesces in offset order by
     construction): ``group_by_file=False`` is one open per target, and
     ``sort_offsets=False`` visits each file's targets in lookup order.
 
-    ``device`` (default ``"cuda"``) is where the engine's default verifier
-    runs its digest compare; asking for ``"cuda"`` without CUDA raises.
+    ``device`` is where the engine's default verifier runs its digest
+    compare: the service's device when ``service`` is given, else
+    ``"cuda"``; asking for ``"cuda"`` without CUDA raises.
     """
-    device = resolve_device(device)
+    device = _resolve(device, service)
     t0 = time.perf_counter()
     res = ExtractionResult()
-    plan, missing = plan_extraction(index, targets, key_bits, sort_offsets)
+    executor = None
+    if service is not None:
+        plan, missing = service.plan(targets, key_bits=key_bits,
+                                     sort_offsets=sort_offsets)
+        if cache is None:
+            cache = service.cache
+        executor = service.read_executor
+        if workers is None:
+            workers = service.config.read_workers
+        if backend is None:
+            backend = service.read_backend
+        if verifier is None:
+            verifier = service.verifier
+    else:
+        plan, missing = plan_extraction(index, targets, key_bits, sort_offsets)
     res.missing = missing
     res.plan_seconds = time.perf_counter() - t0
 
@@ -222,6 +244,7 @@ def extract(
             cache=cache,
             verify_backend=verify_backend,
             stats=stats,
+            executor=executor,
             backend=backend,
             depth=depth,
             verifier=verifier,
@@ -286,6 +309,14 @@ def extract(
     return res
 
 
+def _resolve(device: Optional[DeviceLike], service):
+    """``device``, or the service's when it is None and a service is given,
+    else ``"cuda"``."""
+    if device is None:
+        device = service.config.device if service is not None else "cuda"
+    return resolve_device(device)
+
+
 def extract_iter(
     store: RecordStore,
     index,
@@ -302,7 +333,8 @@ def extract_iter(
     depth: Optional[int] = None,
     verifier=None,  # shared repro_torch.core.verify.VerifyBatcher
     result: Optional[ExtractionResult] = None,
-    device: DeviceLike = "cuda",
+    service=None,  # repro_torch.service.QueryService — scheduler-coalesced plan path
+    device: Optional[DeviceLike] = None,
 ) -> Iterator[Tuple[str, str]]:
     """Streaming Algorithm 3: yield ``(full_id, record)`` as verified.
 
@@ -319,11 +351,28 @@ def extract_iter(
     ``sort_offsets``/``group_by_file`` — do not apply here: the engine
     always reads each file's targets in coalesced offset order).
 
+    ``service`` routes the plan probe through the query service's
+    scheduler and defaults ``cache`` to the service's shared record cache,
+    exactly as in :func:`extract`; ``index`` may then be ``None``.
+
     ``device`` is the default verifier's device, as in :func:`extract`.
     """
-    device = resolve_device(device)
+    device = _resolve(device, service)
     t0 = time.perf_counter()
-    plan, missing = plan_extraction(index, targets, key_bits)
+    executor = None
+    if service is not None:
+        plan, missing = service.plan(targets, key_bits=key_bits)
+        if cache is None:
+            cache = service.cache
+        executor = service.read_executor
+        if workers is None:
+            workers = service.config.read_workers
+        if backend is None:
+            backend = service.read_backend
+        if verifier is None:
+            verifier = service.verifier
+    else:
+        plan, missing = plan_extraction(index, targets, key_bits)
     if result is not None:
         result.missing = missing
         result.plan_seconds = time.perf_counter() - t0
@@ -343,6 +392,7 @@ def extract_iter(
             cache=cache,
             verify_backend=verify_backend,
             stats=stats,
+            executor=executor,
             backend=backend,
             depth=depth,
             verifier=verifier,

@@ -40,11 +40,15 @@ pairs.  ``ByteOffsetIndex`` remains the builder: :func:`save_sharded`
 skips rewriting shards whose content hash is unchanged, so incremental
 index updates republish only the shards they touched.
 
-Each shard also carries a **fingerprint plane** (``fps``/``fpcounts``
-sidecars, see :mod:`repro_torch.core.fingerprint`) for the similarity
-modality.  :func:`save_sharded` writes it so that store directories stay
-interchangeable with the reference package's; querying it is not ported
-yet.
+Beyond exact-key lookup, each shard carries a **fingerprint plane**
+(``fps``/``fpcounts`` sidecars, see :mod:`repro_torch.core.fingerprint`):
+packed ``(N, W)`` uint32 bit-rows in the same digest-sorted row order as
+the data columns, enabling the second query modality —
+:meth:`IndexStore.similar_batch` screens a batch of query fingerprints
+against every shard's plane with the batched Tanimoto top-k kernel and
+merges the per-shard winners into global ``(scores, file_ids, offsets)``.
+A shard's plane and counts go to the store's device once, at its first
+device scan; replicas of one store share these device tables.
 """
 
 from __future__ import annotations
@@ -62,14 +66,22 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.sorted_probe.ops import sorted_probe
+from ..kernels.tanimoto.ops import tanimoto_topk
+from ..kernels.tanimoto.ref import tanimoto_topk_ref
 from .bloom import BloomFilter
-from .fingerprint import DEFAULT_FP_BITS, fingerprint_batch, words_for
+from .fingerprint import (
+    DEFAULT_FP_BITS,
+    fingerprint_batch,
+    popcount_u32,
+    words_for,
+)
 
 __all__ = [
     "IndexStore",
     "QueryStats",
     "candidate_runs",
     "digest_u64",
+    "merge_similar_topk",
     "save_sharded",
     "shard_of",
 ]
@@ -147,6 +159,47 @@ def _u64_to_pairs(d: np.ndarray) -> np.ndarray:
     hi = (d >> np.uint64(32)).astype(np.uint32)
     lo = (d & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     return np.stack([hi, lo], axis=1)
+
+
+def merge_similar_topk(
+    parts: Sequence[Tuple[np.ndarray, np.ndarray, np.ndarray]], k: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Merge per-shard ``(scores, file_ids, offsets)`` top-k candidates.
+
+    The cross-shard tie contract: global order is ``(score desc, file_id
+    asc, offset asc)`` — shard-local row order is digest order, meaningless
+    across shards, so equal Tanimoto scores from different shards must
+    break on the *location* the caller actually receives or the merged
+    ranking would depend on shard layout.  Implemented as three stable
+    argsorts (offset, then file_id, then ``-score``) == one lexsort with
+    score majorizing.  Pad slots (score ``-1``) sort last under ``-score``
+    regardless of their location columns.  Used by both
+    :meth:`IndexStore.similar_batch` (merging shards) and the router
+    (merging replica scatter results) so the two paths cannot drift.
+    Host numpy, as in the reference: the parts are ``(Q, k)`` each.
+    """
+    scores = np.concatenate([p[0] for p in parts], axis=1)
+    fids = np.concatenate([p[1] for p in parts], axis=1)
+    offs = np.concatenate([p[2] for p in parts], axis=1)
+
+    def take(order):
+        return (
+            np.take_along_axis(scores, order, axis=1),
+            np.take_along_axis(fids, order, axis=1),
+            np.take_along_axis(offs, order, axis=1),
+        )
+
+    scores, fids, offs = take(np.argsort(offs, axis=1, kind="stable"))
+    scores, fids, offs = take(np.argsort(fids, axis=1, kind="stable"))
+    scores, fids, offs = take(
+        np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    )
+    pad = scores < 0.0
+    return (
+        np.where(pad, np.float32(-1.0), scores).astype(np.float32, copy=False),
+        np.where(pad, np.int32(-1), fids).astype(np.int32, copy=False),
+        np.where(pad, np.int64(-1), offs).astype(np.int64, copy=False),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +391,8 @@ class QueryStats:
     bloom_false_positives: int = 0  # passed the filter, no digest in shard
     digest_probes: int = 0          # candidates probed against a digest column
     verify_collisions: int = 0      # equal digest, different key (scanned past)
+    similar_queries: int = 0        # fingerprint rows submitted to similar_batch
+    fp_rows_scanned: int = 0        # query x database row pairs Tanimoto-scored
     shards_touched: Set[int] = field(default_factory=set)
 
     def merge(self, other: "QueryStats") -> None:
@@ -348,6 +403,8 @@ class QueryStats:
         self.bloom_false_positives += other.bloom_false_positives
         self.digest_probes += other.digest_probes
         self.verify_collisions += other.verify_collisions
+        self.similar_queries += other.similar_queries
+        self.fp_rows_scanned += other.fp_rows_scanned
         self.shards_touched |= other.shards_touched
 
 
@@ -377,12 +434,13 @@ class IndexStore:
     amortizes digesting, routing, filtering, and probing across the whole
     batch.
 
-    ``device`` (default ``"cuda"``) is where the digest probe runs: each
-    touched shard's digest column is uploaded there once, at its first
-    device probe, and ``probe="auto"`` means ``"device"`` on a CUDA store.
+    ``device`` (default ``"cuda"``) is where the digest probe and the
+    Tanimoto scan run: each touched shard's digest column, and its
+    fingerprint plane with its counts, are uploaded there once, at first
+    device use, and ``probe="auto"`` means ``"device"`` on a CUDA store.
     Asking for ``"cuda"`` without CUDA raises; ``device="cpu"`` keeps the
-    device tables on the host, where the probe runs the kernel's plain
-    PyTorch version.
+    device tables on the host, where the probe and the scan run the
+    kernels' plain PyTorch versions.
     """
 
     def __init__(
@@ -399,12 +457,25 @@ class IndexStore:
         self.n_shards: int = int(manifest["n_shards"])
         self.digest_bits: int = int(manifest["digest_bits"])
         self.file_names: List[str] = list(manifest["file_names"])
+        # None on stores published before the similarity modality (or with
+        # fingerprints disabled): similar_batch raises a clear error then
+        fp_bits = manifest.get("fingerprint_bits")
+        self.fingerprint_bits: Optional[int] = (
+            int(fp_bits) if fp_bits is not None else None
+        )
         self._mmap = bool(mmap)
         self._shards: Dict[int, _Shard] = {}
         self._blooms: Dict[int, BloomFilter] = {}
-        # Per-shard (M, 2) uint32 digest tables on self.device: the device
-        # counterpart of the lazy mmap, uploaded once at first device probe.
+        self._fp_shards: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        # Per-shard tables on self.device, the device counterpart of the
+        # lazy mmap, each uploaded once at first device use: (M, 2) uint32
+        # digest tables and ((N, W) uint32, (N,) int32) fingerprint planes.
+        # Replicas of one store share them (share_device_tables); the
+        # owner alone counts them in resident_bytes.
         self._probe_tables: Dict[int, torch.Tensor] = {}
+        self._fp_tables: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._table_lock = threading.Lock()
+        self._owns_tables = True
         self.stats = QueryStats()
         # Concurrent lookup_batch callers (the service's scatter-gather
         # workers) race the lazy first-touch np.load of a shard and the
@@ -480,12 +551,73 @@ class IndexStore:
         table = self._probe_tables.get(s)
         if table is None:
             digests = self._shard(s).digests  # takes _load_lock itself
-            with self._load_lock:
+            with self._table_lock:
                 table = self._probe_tables.get(s)
                 if table is None:
                     table = _pairs_tensor(digests, self.device)
                     self._probe_tables[s] = table
         return table
+
+    def _fp_table(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Shard ``s``'s fingerprint plane ``(N, W)`` uint32 and counts
+        ``(N,)`` int32 on the store's device (uploaded once, at first
+        use)."""
+        pair = self._fp_tables.get(s)
+        if pair is None:
+            fps, counts = self._fp_shard(s)  # takes _load_lock itself
+            with self._table_lock:
+                pair = self._fp_tables.get(s)
+                if pair is None:
+                    pair = (
+                        _host_tensor(fps).to(self.device),
+                        _host_tensor(counts).to(self.device),
+                    )
+                    self._fp_tables[s] = pair
+        return pair
+
+    def share_device_tables(self, owner: "IndexStore") -> None:
+        """Use ``owner``'s per-shard device tables (digest and fingerprint)
+        instead of uploading copies: replicas of one store on one device
+        then hold each shard's tables once, counted by ``owner``."""
+        if owner.device != self.device or owner.root != self.root:
+            raise ValueError("only replicas of one store on one device share")
+        with self._table_lock:
+            self._probe_tables = owner._probe_tables
+            self._fp_tables = owner._fp_tables
+            self._table_lock = owner._table_lock
+            self._owns_tables = False
+
+    def _fp_shard(self, s: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Lazy mmap of shard ``s``'s ``(fps, fpcounts)`` fingerprint plane."""
+        pair = self._fp_shards.get(s)
+        if pair is None:
+            if self.fingerprint_bits is None:
+                raise ValueError(
+                    "store has no fingerprint plane (published with "
+                    "fingerprint_bits=None or by a writer older than similarity); "
+                    "re-run save_sharded with fingerprint_bits set"
+                )
+            with self._load_lock:
+                pair = self._fp_shards.get(s)
+                if pair is None:
+                    count = int(self.manifest["shards"][s]["count"])
+                    w = words_for(self.fingerprint_bits)
+                    if count == 0:
+                        pair = (
+                            np.zeros((0, w), dtype=np.uint32),
+                            np.zeros(0, dtype=np.int32),
+                        )
+                    else:
+                        stem = _shard_stem(s)
+                        mode = "r" if self._mmap else None
+                        pair = (
+                            np.load(self.root / f"{stem}.fps.npy",
+                                    mmap_mode=mode),
+                            np.load(self.root / f"{stem}.fpcounts.npy",
+                                    mmap_mode=mode),
+                        )
+                    self._fp_shards[s] = pair
+        return pair
 
     def _bloom(self, s: int) -> BloomFilter:
         bloom = self._blooms.get(s)
@@ -790,6 +922,178 @@ class IndexStore:
                 delta.verify_collisions += 1  # digest collision
                 t += 1
 
+    # -- similarity modality ---------------------------------------------------
+
+    def fp_words(self) -> int:
+        """uint32 words per fingerprint row (raises without a plane)."""
+        if self.fingerprint_bits is None:
+            raise ValueError("store has no fingerprint plane")
+        return words_for(self.fingerprint_bits)
+
+    def _check_fps(self, fps: np.ndarray) -> np.ndarray:
+        fps = np.ascontiguousarray(fps, dtype=np.uint32)
+        if fps.ndim == 1:
+            fps = fps[None, :]
+        if fps.ndim != 2 or fps.shape[1] != self.fp_words():
+            raise ValueError(
+                f"query fingerprints must be (Q, {self.fp_words()}) uint32 "
+                f"(fingerprint_bits={self.fingerprint_bits}), got {fps.shape}"
+            )
+        return fps
+
+    def _similar_probe(self, probe: Optional[str]) -> str:
+        if probe is None or probe == "auto":
+            return "device" if self.device.type == "cuda" else "host"
+        if probe not in ("host", "device"):
+            raise ValueError(f"unknown probe backend {probe!r}")
+        return probe
+
+    def _query_tensors(
+        self, fps: np.ndarray, q_counts: np.ndarray
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A query batch and its counts on the store's device (uploaded once
+        per batch, shared by every shard it scans)."""
+        return (
+            torch.from_numpy(fps).to(self.device),
+            torch.from_numpy(np.ascontiguousarray(q_counts, dtype=np.int32))
+            .to(self.device),
+        )
+
+    def _similar_shard(
+        self,
+        s: int,
+        fps: np.ndarray,
+        k: int,
+        probe: str,
+        q_counts: np.ndarray,
+        delta: QueryStats,
+        queries: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Top-k of one shard's plane, rows mapped to ``(file_id, offset)``.
+
+        Within a shard ties break by row index (ascending digest order) —
+        the kernel/reference contract — which the cross-shard merge then
+        re-breaks on ``(file_id, offset)``; see :func:`merge_similar_topk`.
+        ``probe="device"`` scans the shard's plane on the store's device
+        with ``tanimoto_topk`` (the CUDA kernel on a CUDA store, its plain
+        version on a CPU store; ``queries`` is the batch already there);
+        ``"host"`` runs the plain version on the CPU over the mmap'd plane.
+        """
+        qn = fps.shape[0]
+        count = int(self.manifest["shards"][s]["count"])
+        if count == 0:
+            return (
+                np.full((qn, k), -1.0, dtype=np.float32),
+                np.full((qn, k), -1, dtype=np.int32),
+                np.full((qn, k), -1, dtype=np.int64),
+            )
+        delta.shards_touched.add(s)
+        delta.fp_rows_scanned += count * qn
+        if probe == "device":
+            db, dc = self._fp_table(s)
+            q, qc = queries or self._query_tensors(fps, q_counts)
+            scores, rows = tanimoto_topk(q, db, k, q_counts=qc, db_counts=dc)
+        else:
+            db, dc = self._fp_shard(s)
+            scores, rows = tanimoto_topk_ref(
+                torch.from_numpy(fps), _host_tensor(db), k,
+                q_counts=torch.from_numpy(
+                    np.ascontiguousarray(q_counts, dtype=np.int32)),
+                db_counts=_host_tensor(dc),
+            )
+        scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
+        shard = self._shard(s)
+        valid = rows >= 0
+        r = np.where(valid, rows, 0)
+        fids = np.where(
+            valid, np.asarray(shard.file_ids)[r], np.int32(-1)
+        ).astype(np.int32, copy=False)
+        offs = np.where(
+            valid, np.asarray(shard.offsets)[r], np.int64(-1)
+        ).astype(np.int64, copy=False)
+        return scores, fids, offs
+
+    def similar_shard(
+        self,
+        s: int,
+        fps: np.ndarray,
+        k: int,
+        probe: Optional[str] = None,
+        q_counts: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """One shard's ``(scores, file_ids, offsets)`` top-k (router scatter)."""
+        fps = self._check_fps(fps)
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        if not 0 <= s < self.n_shards:
+            raise ValueError(f"shard {s} out of range [0, {self.n_shards})")
+        qc = (
+            popcount_u32(fps).sum(axis=1, dtype=np.int32)
+            if q_counts is None else np.asarray(q_counts, dtype=np.int32)
+        )
+        delta = QueryStats()
+        out = self._similar_shard(
+            s, fps, k, self._similar_probe(probe), qc, delta
+        )
+        with self._stats_lock:
+            self.stats.merge(delta)
+        return out
+
+    def similar_batch(
+        self,
+        fps: np.ndarray,
+        k: int,
+        probe: Optional[str] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Batched Tanimoto top-k over every shard's fingerprint plane.
+
+        ``fps`` is ``(Q, W)`` uint32 (one packed query fingerprint per
+        row, e.g. :func:`repro_torch.core.fingerprint.fold_fingerprint`
+        output); returns ``(scores (Q, k) float32, file_ids (Q, k) int32,
+        offsets (Q, k) int64)`` ordered by ``(score desc, file_id asc,
+        offset asc)``, padded with ``-1`` columns when the corpus holds
+        fewer than ``k`` rows.  ``probe`` selects the scoring backend like
+        :meth:`lookup_batch`: ``"device"`` (``tanimoto_topk`` on the
+        store's device), ``"host"`` (the plain version on the CPU —
+        byte-identical), or ``None``/"auto" (``"device"`` on a CUDA
+        store, else ``"host"``).  Thread-safe like ``lookup_batch``.
+        """
+        fps = self._check_fps(fps)
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        probe = self._similar_probe(probe)
+        qn = fps.shape[0]
+        delta = QueryStats(similar_queries=qn)
+        if qn == 0:
+            with self._stats_lock:
+                self.stats.merge(delta)
+            e = np.zeros((0, k))
+            return (
+                e.astype(np.float32),
+                e.astype(np.int32),
+                e.astype(np.int64),
+            )
+        qc = popcount_u32(fps).sum(axis=1, dtype=np.int32)
+        queries = (
+            self._query_tensors(fps, qc) if probe == "device" else None
+        )
+        parts = [
+            self._similar_shard(s, fps, k, probe, qc, delta, queries)
+            for s in range(self.n_shards)
+            if int(self.manifest["shards"][s]["count"]) > 0
+        ]
+        if not parts:
+            out = (
+                np.full((qn, k), -1.0, dtype=np.float32),
+                np.full((qn, k), -1, dtype=np.int32),
+                np.full((qn, k), -1, dtype=np.int64),
+            )
+        else:
+            out = merge_similar_topk(parts, k)
+        with self._stats_lock:
+            self.stats.merge(delta)
+        return out
+
     # -- ByteOffsetIndex-compatible read surface -------------------------------
 
     def locate_batch(
@@ -832,22 +1136,36 @@ class IndexStore:
         )
 
     def resident_bytes(self) -> int:
-        """Bytes of shard columns + Bloom bitmaps actually faulted in, plus
-        the probe tables this store put on its device (a plane adopted
-        from a replica is counted by that replica).
+        """Bytes of shard columns, Bloom bitmaps and fingerprint planes
+        actually faulted in, plus the tables this store put on its device
+        (tables shared with or adopted from a replica are counted by the
+        replica that uploaded them).
 
         With mmap this is an upper bound (pages of touched shards); the
         point of comparison is against the dict index, which is *all*
         resident *always*.
         """
-        dev = list(self._probe_tables.values())
+        dev: List[torch.Tensor] = []
+        if self._owns_tables:
+            dev += list(self._probe_tables.values())
+            dev += [t for pair in self._fp_tables.values() for t in pair]
         if self._probe_plane is not None and self._owns_probe_plane:
             dev.append(self._probe_plane)
         return (
             sum(sh.nbytes for sh in self._shards.values())
             + sum(bf.nbytes for bf in self._blooms.values())
+            + sum(
+                int(fp.nbytes) + int(fc.nbytes)
+                for fp, fc in self._fp_shards.values()
+            )
             + sum(t.numel() * t.element_size() for t in dev)
         )
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``a``'s values (copied when ``a`` is a read-only
+    mmap: torch tensors are always writable)."""
+    return torch.from_numpy(np.require(a, requirements=["C", "W"]))
 
 
 def _pairs_tensor(digests: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -10,7 +10,10 @@ the kernel for a CUDA tensor, the plain version for a CPU tensor).
 * ``hash_mix``     — 128-bit mixing digest of packed identifiers.
 * ``sorted_probe`` — membership and lower bound of 64-bit keys in a sorted
                      digest table (the index lookup).
+* ``tanimoto``     — batched Tanimoto top-k over packed fingerprints (the
+                     similarity search).
 """
 
 from .hash_mix.ops import hash_mix
 from .sorted_probe.ops import sorted_probe
+from .tanimoto.ops import tanimoto_topk

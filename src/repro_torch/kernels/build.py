@@ -24,12 +24,14 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "ptxas_report"]
+__all__ = [
+    "SOURCES", "NVCC_FLAGS", "build", "count_launch", "load", "ptxas_report",
+]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("hash_mix", "sorted_probe")
+SOURCES = ("hash_mix", "sorted_probe", "tanimoto")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,6 +40,7 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -109,6 +112,17 @@ def ptxas_report(name: str) -> str:
     shared memory, spills), or "" when it was not built here."""
     p = _lib_path(name).parent / f"{name}.ptxas.txt"
     return p.read_text() if p.exists() else ""
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.
+
+    The service launches kernels from many threads at once (the router's
+    scatter pool, the batchers' leaders), and ``+= 1`` on an attribute is
+    not atomic, so every wrapper counts through this lock.
+    """
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def load(name: str) -> ctypes.CDLL:

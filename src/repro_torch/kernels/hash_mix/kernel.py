@@ -7,7 +7,7 @@ lane.  Design: one thread per row walking its W lanes in registers; the
 loads are strided per warp (a later change can stage rows through shared
 memory to coalesce them).  See the source for the details.
 
-``hash_mix_cuda.launches`` counts the launches of the kernel.
+``hash_mix_cuda.launches`` counts the launches of the kernel (thread-safe).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from ..build import load
+from ..build import count_launch, load
 
 __all__ = ["hash_mix_cuda"]
 
@@ -55,7 +55,7 @@ def hash_mix_cuda(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
         err = _fn()(x.data_ptr(), out.data_ptr(), n, w, seed, stream)
     if err != 0:
         raise RuntimeError(f"hash_mix kernel launch failed: cudaError {err}")
-    hash_mix_cuda.launches += 1
+    count_launch(hash_mix_cuda)
     return out
 
 

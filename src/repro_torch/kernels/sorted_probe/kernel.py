@@ -10,7 +10,7 @@ a branch-free lower-bound search over the whole table returning the global
 lower bound, so the TPU design's fence bucketing, dense block compare and
 overflow fallback are gone.
 
-``sorted_probe_cuda.launches`` counts the launches of the kernel.
+``sorted_probe_cuda.launches`` counts the launches of the kernel (thread-safe).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from ..build import load
+from ..build import count_launch, load
 
 __all__ = ["sorted_probe_cuda"]
 
@@ -75,7 +75,7 @@ def sorted_probe_cuda(
                     pos.data_ptr(), q, m, stream)
     if err != 0:
         raise RuntimeError(f"sorted_probe kernel launch failed: cudaError {err}")
-    sorted_probe_cuda.launches += 1
+    count_launch(sorted_probe_cuda)
     return found, pos
 
 

@@ -33,7 +33,7 @@ import shutil
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Union
 
 import numpy as np
 
@@ -98,14 +98,20 @@ def run_funnel(
     device: DeviceLike = "cuda",
     workers: int = 4,
     log=print,
+    workdir: Optional[Union[str, Path]] = None,
 ) -> Dict[str, object]:
-    """Run the funnel in a temporary directory; raise on any disagreement.
+    """Run the funnel; raise on any disagreement.
 
-    ``workers`` is the index build's process count.  Returns a summary.
+    ``workers`` is the index build's process count.  Without ``workdir``
+    the run lives in a temporary directory, removed at the end; with one,
+    it writes there and keeps ``corpus/`` and the published ``store/``
+    for a caller to serve.  Returns a summary.
     """
     dev = resolve_device(device)
     spec = funnel_spec(records, seed)
-    root = Path(tempfile.mkdtemp(prefix="funnel_"))
+    keep = workdir is not None
+    root = Path(workdir) if keep else Path(tempfile.mkdtemp(prefix="funnel_"))
+    root.mkdir(parents=True, exist_ok=True)
     seconds: Dict[str, float] = {}
     try:
         t_all = time.perf_counter()
@@ -221,7 +227,8 @@ def run_funnel(
             "seconds": seconds,
         }
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def main(argv=None) -> None:

@@ -48,7 +48,15 @@ def test_importing_every_port_module_pulls_in_no_jax_triton_or_repro():
     for mod in ("repro_torch.core.store", "repro_torch.core.verify",
                 "repro_torch.kernels.build", "repro_torch.launch.funnel",
                 "repro_torch.kernels.sorted_probe.kernel",
-                "repro_torch.kernels.hash_mix.kernel"):
+                "repro_torch.kernels.hash_mix.kernel",
+                "repro_torch.kernels.tanimoto.kernel",
+                "repro_torch.kernels.tanimoto.ops",
+                "repro_torch.launch.serve_index",
+                "repro_torch.runtime.fault",
+                "repro_torch.service.api", "repro_torch.service.health",
+                "repro_torch.service.loadgen", "repro_torch.service.router",
+                "repro_torch.service.scheduler",
+                "repro_torch.service.transport"):
         assert mod in report["imported"]
 
 

@@ -244,3 +244,34 @@ def test_asking_for_cuda_without_cuda_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_launch_counter_is_exact_across_threads():
+    """``count_launch`` is a read-modify-write under a lock: with more
+    threads than cores and a tiny switch interval, no increment is lost."""
+    import sys
+    import threading
+
+    from repro_torch.kernels.build import count_launch
+
+    def wrapper():  # stands in for a kernel wrapper
+        pass
+
+    wrapper.launches = 0
+    n_threads, per_thread = 32, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [
+            threading.Thread(
+                target=lambda: [count_launch(wrapper) for _ in range(per_thread)])
+            for _ in range(n_threads)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert wrapper.launches == n_threads * per_thread
