@@ -16,9 +16,18 @@
    card in chunks) screened by 64 queries at k = 32; ``ties``, 4,194,304
    rows drawn from 4,096 distinct fingerprints, shuffled, screened by 256
    queries (rows of the plane, all-zero queries, random ones) at k = 1,
-   32 and 1,024.  Prints each kernel's time, the plain version's, a
-   PyTorch library call's where one computes the same function, and the
-   least time the card could take (its bound).
+   32, 1,024 and 2,048, and on its first 5,000 rows at k = 8,192 (k > N:
+   pads, and the stage-1 lists in global memory).  ``flash_attention``
+   against its plain version in bfloat16 at the LM prefill's shape (yi-6b:
+   B = 8, Hq = 32, Hkv = 4, S = 2,048, D = 128, causal) and at gemma3-12b's
+   (B = 1, Hq = 16, Hkv = 8, S = 4,096, D = 256, window 1,024), held to
+   the plain version's float32 output on the same values within the bf16
+   cast's rounding (``FA_RTOL`` |ref| + ``FA_ATOL``), a bound that a
+   variant losing one key tile must exceed, with
+   ``torch.nn.functional.scaled_dot_product_attention`` timed beside it.
+   Prints each kernel's time, the plain version's, a PyTorch library
+   call's where one computes the same function, and the least time the
+   card could take (its bound).
 3. The funnel end to end on the card through ``repro_torch.launch.funnel``
    (corpus, index, publish, intersect, lookup_batch, extract + verify) at
    100,000 records, plus an extraction through 17-bit hashed keys whose
@@ -33,7 +42,24 @@
    the host's plain version).  Launch counts are set to 0 before the phase
    and read after it: ``sorted_probe``, ``hash_mix`` and ``tanimoto`` must
    each have launched there.
-5. A ``{"kernels": [...]}`` line, the card line, and as the last line
+5. A model check at full width: yi-6b cut to 2 layers, in float32 with
+   TF32 off, weights made once and loaded into a card model and a CPU
+   model; the prefill logits of two ragged prompts (at most 256 bytes, from
+   the funnel's corpus) must agree within ``MODEL_ATOL``/``MODEL_RTOL``,
+   and the card's prefill must have launched ``flash_attention`` once per
+   layer.
+6. LM serving through ``repro_torch.launch.serve.run``: yi-6b at its
+   published widths and full depth (32 layers) in bfloat16, random weights
+   drawn on the card from ``--seed``, 8 prompts cut from the funnel's
+   corpus records to 17 ... 2,047 bytes (2,048 tokens with BOS, so the
+   padded prefill is B = 8 x S = 2,048), 32 new tokens, ``max_len``
+   4,096, served twice: the two runs must give the same tokens, and
+   ``flash_attention`` must have launched exactly once per layer per
+   prefill (launch counts set to 0 just before the phase).  Then a third
+   ``generate`` of the served engine under ``torch.profiler``: for its
+   prefill and its decode, the card's busy share and the kernels that take
+   the most device time.
+7. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 
 Needs one CUDA card; exits non-zero without one.
@@ -74,7 +100,27 @@ SIM_K = 32                 # the service's similar_top_k
 TIES_ROWS = 1 << 22        # ties case: 4,194,304 rows ...
 TIES_DISTINCT = 4096       # ... drawn from 4,096 distinct fingerprints
 TIES_QUERIES = 256
-TIES_KS = (1, 32, 1024)
+TIES_KS = (1, 32, 1024, 2048)
+PADS_ROWS = 5_000          # ties plane cut to 5,000 rows ...
+PADS_K = 8_192             # ... at k > N: pads, lists in global memory
+BF16_FLOPS_PER_S = 989e12  # tensor-core bf16 peak (H100 SXM, dense)
+# flash_attention cases: (name, B, Hq, Hkv, S, D, window)
+FA_YI = ("yi-6b", 8, 32, 4, 2048, 128, None)
+FA_GEMMA = ("gemma3-12b", 1, 16, 8, 4096, 256, 1024)
+# flash_attention in bfloat16 against the plain version's float32 output on
+# the same values: |err| <= FA_RTOL * |ref| + FA_ATOL.  FA_RTOL is the bf16
+# cast's rounding (half a step: 8 significant bits), FA_ATOL covers float32
+# arithmetic (the f32 card tests agree within 2e-5).  A known-wrong variant,
+# the plain version that loses the first FA_DROP keys of every row, must
+# read above that bound, or the check could not see a lost key tile.
+FA_RTOL = 2.0 ** -8
+FA_ATOL = 1e-4
+FA_DROP = 64
+MODEL_LAYERS = 2           # the model check's depth cut
+MODEL_ATOL = MODEL_RTOL = 1e-3  # float32 logits, card vs CPU, 2 layers
+SERVE_LENGTHS = (17, 64, 160, 384, 768, 1152, 1600, 2047)  # prompt bytes
+SERVE_NEW_TOKENS = 32
+SERVE_MAX_LEN = 4096
 PLANE_CHUNK = 1 << 23      # rows generated (and counted) per step on the card
 PLAIN_ELEMS = 1 << 26      # (query, row) pairs per block of the plain version
 # __popc throughput of compute capability 9.0: 16 results per clock per SM
@@ -289,7 +335,12 @@ def tanimoto_phase(seed: int):
         torch.randint(0, TIES_ROWS, (TIES_QUERIES // 2,), generator=g, device=dev)]
     qi[TIES_QUERIES // 2: TIES_QUERIES // 2 + 16] = 0
     tanimoto_case("ties", q, db, dc, TIES_KS, reps=3, popc_rate=rate)
-    del base, pick, db, dc, q, qi
+    # k > N on the plane's first rows: pads, and lists too long for shared
+    # memory even at one query per warp
+    head = db[:PADS_ROWS].contiguous()
+    tanimoto_case("ties-pads", q, head, dc[:PADS_ROWS].contiguous(), (PADS_K,),
+                  reps=3, popc_rate=rate)
+    del base, pick, db, dc, q, qi, head
     torch.cuda.empty_cache()
     return main
 
@@ -354,6 +405,232 @@ def kernel_phase(seed: int):
     return main, hm
 
 
+def attention_case(case, seed: int):
+    """Hold flash_attention's kernel to its plain version in bfloat16 on
+    the model's (B, S, H, D) layout viewed as (B, H, S, D); time it, the
+    plain version and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    name, b, hq, hkv, s, d, window = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+
+    def make(h):
+        x = torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
+        return x.transpose(1, 2)
+
+    def excess(got, ref):
+        """max of |got - ref| / (FA_RTOL |ref| + FA_ATOL): above 1 fails."""
+        return float(((got - ref).abs() / (FA_RTOL * ref.abs() + FA_ATOL)).max())
+
+    q, k, v = make(hq), make(hkv), make(hkv)
+    out = flash_attention_cuda(q, k, v, causal=True, window=window).float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref = flash_attention_ref(qf, kf, vf, causal=True, window=window)
+    err, ratio = float((out - ref).abs().max()), excess(out, ref)
+    cut = (slice(None), slice(None), slice(FA_DROP, None))
+    wrong = excess(flash_attention_ref(qf[cut], kf[cut], vf[cut], causal=True,
+                                       window=window), ref[cut])
+    tol = (f"|err| <= {FA_RTOL:g}|ref| + {FA_ATOL:g}: worst {ratio:.4g} of the "
+           f"bound; losing keys 0..{FA_DROP - 1} reads {wrong:.4g}")
+    if not ratio <= 1.0:
+        fail(f"flash_attention {name}: max_abs_err {err} outside {tol}")
+    if not wrong > 1.0:
+        fail(f"flash_attention {name}: the tolerance passes a wrong variant ({tol})")
+    del out, ref, qf, kf, vf
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
+                                              window=window), 5, warmup=1)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                window=window), 2, warmup=1)
+    mask = None
+    if window is not None:
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True), 5)
+    # the visible (query, key) pairs of this mask, two products of D each
+    w = s if window is None else window
+    pairs = sum(min(p + 1, w) for p in range(s))
+    flops = 4 * b * hq * d * pairs
+    nbytes = 2 * b * s * d * (2 * hq + 2 * hkv)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"flash_attention[{name}]: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+          f"window={window} bf16 causal max_abs_err={err:.6g} ({tol}); "
+          f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms(sdpa)={library:.6f} "
+          f"flops={flops} bytes={nbytes} bound_ms={bnd:.6f} ({by})", flush=True)
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bnd,
+                bound_by=by, max_abs_err=err)
+
+
+def corpus_prompts(work: Path, lengths) -> list:
+    """Prompts cut from the funnel corpus's records: the i-th starts at the
+    i-th record's id line and runs ``lengths[i]`` bytes (records are ASCII)."""
+    from repro_torch.core.records import iter_records
+
+    path = sorted((work / "corpus").glob("compound_*.sdf"))[0]
+    recs = []
+    for _, text in iter_records(path):
+        recs.append(text)
+        if len(recs) == 64:
+            break
+    stream = "".join(recs)
+    out, at = [], 0
+    for n, rec in zip(lengths, recs):
+        start = stream.index("InChI=", at)
+        out.append(stream[start:start + n])
+        at += len(rec)
+    if [len(p.encode()) for p in out] != list(lengths):
+        fail("funnel corpus too short for the serving prompts")
+    return out
+
+
+def prompt_batch(prompts):
+    """``(tokens (B, S) right-padded, lengths (B,))`` of BOS + the bytes of
+    each prompt, as the engine pads them."""
+    from repro_torch.data.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    ids = [tok.encode(p, add_eos=False) for p in prompts]
+    toks = torch.full((len(ids), max(map(len, ids))), tok.pad_id, dtype=torch.long)
+    for i, row in enumerate(ids):
+        toks[i, :len(row)] = torch.tensor(row)
+    return toks, torch.tensor([len(r) for r in ids])
+
+
+def model_phase(work: Path, seed: int, fa_cuda) -> int:
+    """yi-6b at full width, 2 layers, float32: prefill logits on the card
+    against the CPU on the same weights; returns the card's launches."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm, lm_prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=MODEL_LAYERS,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    cpu_model = init_lm(cfg, g, "cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    toks, lens = prompt_batch(corpus_prompts(work, (255, 97)))
+    want, _ = lm_prefill(cpu_model, cfg, toks, lengths=lens)
+    fa_cuda.launches = 0
+    got, cache = lm_prefill(card_model, cfg, toks.cuda(), lengths=lens.cuda())
+    torch.cuda.synchronize()
+    launches = fa_cuda.launches
+    got = got.cpu()
+    if got.shape != (2, cfg.vocab_size) or not torch.isfinite(got).all():
+        fail(f"model check: logits {tuple(got.shape)} not finite or misshaped")
+    err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+    print(f"model check: yi-6b full width, {MODEL_LAYERS} layers, float32, "
+          f"allow_tf32=False; prompts {lens.tolist()} tokens; card vs CPU "
+          f"prefill logits max_abs_err={err:.6g} (atol {MODEL_ATOL}, rtol "
+          f"{MODEL_RTOL}); flash_attention launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        fail(f"model check: card logits differ from the CPU's (max {err})")
+    if launches != MODEL_LAYERS:
+        fail(f"model check: {launches} flash_attention launches for "
+             f"{MODEL_LAYERS} layers")
+    del cpu_model, card_model, cache, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_serving_phase(work: Path, seed: int, fa_cuda, card: str) -> int:
+    """yi-6b, full width and depth, bfloat16, through launch.serve.run;
+    returns flash_attention's launches over the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    prompts = corpus_prompts(work, SERVE_LENGTHS)
+    args = serve.build_parser().parse_args([
+        "--arch", "yi-6b", "--full-config", "--device", "cuda",
+        "--seed", str(seed), "--max-new-tokens", str(SERVE_NEW_TOKENS),
+        "--max-len", str(SERVE_MAX_LEN), "--repeats", "2", "--prompts", *prompts,
+    ])
+    torch.cuda.reset_peak_memory_stats()
+    fa_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = serve.run(args)
+    launches = fa_cuda.launches
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    runs = out["runs"]
+    if runs[0]["token_ids"] != runs[1]["token_ids"]:
+        fail("LM serving: the two generate calls gave different tokens")
+    vocab = get_config("yi-6b").vocab_size
+    for row in runs[0]["token_ids"]:
+        if not row or any(not 0 <= t < vocab for t in row):
+            fail(f"LM serving: bad token row {row[:8]}")
+    want = 2 * out["n_layers"]
+    if launches != want:
+        fail(f"LM serving: {launches} flash_attention launches, want {want} "
+             f"(one per layer per prefill)")
+    for i, r in enumerate(runs):
+        print(f"lm_serving[yi-6b] run {i}: B={out['batch']} prompt tokens "
+              f"{out['prompt_tokens']}; prefill_ms={r['prefill_ms']:.3f} "
+              f"decode {r['decode_steps']} steps in {r['decode_ms']:.3f} ms = "
+              f"{r['decode_tokens_per_s']:.1f} tokens/s; card: {card}", flush=True)
+    print(f"lm_serving[yi-6b]: {out['n_layers']} layers bf16, init "
+          f"{out['init_s']:.1f} s, weight_bytes={out['weight_bytes']} "
+          f"kv_cache_bytes={out['kv_cache_bytes']} peak_allocated={peak} (this "
+          f"phase); flash_attention launches {launches} ({launches // 2} per "
+          f"prefill); tokens identical over 2 runs; {secs:.1f} s", flush=True)
+    profile_generate(out.pop("engine"), prompts, card)
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_generate(engine, prompts, card: str) -> None:
+    """Where serving's time goes: one more ``generate`` of the served engine
+    under ``torch.profiler``.  For its ``Engine.prefill`` and
+    ``Engine.decode`` spans: the span's wall time, the card's busy time in
+    it (the device's kernels and copies that start inside the span; one
+    stream, so they do not overlap) and the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("Engine.prefill", "Engine.decode")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.generate(prompts)
+    events = prof.events()
+    spans = {e.name: e.time_range for e in events
+             if e.name in names and e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in names and not getattr(e, "is_user_annotation", False)]
+    for name in names:
+        span = spans.get(name)
+        inside = [e for e in device if span and span.start <= e.time_range.start < span.end]
+        if not inside:
+            print(f"lm_profile[{name}]: the profiler saw no device events in "
+                  "it: busy share not measured", flush=True)
+            continue
+        wall = span.elapsed_us()
+        busy = sum(e.time_range.elapsed_us() for e in inside)
+        per_kernel: dict = {}
+        for e in inside:
+            t, n = per_kernel.get(e.name, (0, 0))
+            per_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        tops = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:5]
+        top = "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{n}" for k, (t, n) in tops)
+        print(f"lm_profile[{name}]: wall {wall / 1e3:.3f} ms under the profiler, "
+              f"device busy {busy / 1e3:.3f} ms = {busy / wall:.3f} of it "
+              f"({len(inside)} device events); top: {top}; card: {card}", flush=True)
+
+
 def serving_phase(serve_index, work: Path, wrappers, card: str):
     """The query service on the funnel's corpus and store, lookup mode then
     similarity mode; returns each kernel's launches over the phase."""
@@ -395,6 +672,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     try:
         from repro_torch.kernels import build
+        from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
         from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
         from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
         from repro_torch.kernels.tanimoto.kernel import tanimoto_topk_cuda
@@ -421,6 +699,8 @@ def main() -> None:
     t0 = time.perf_counter()
     probe, hm = kernel_phase(args.seed)
     tani = tanimoto_phase(args.seed)
+    attn = attention_case(FA_YI, args.seed)
+    attention_case(FA_GEMMA, args.seed)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     wrappers = {"sorted_probe": sorted_probe_cuda, "hash_mix": hash_mix_cuda,
@@ -440,6 +720,11 @@ def main() -> None:
         print(f"funnel launches: {json.dumps(funnel_launches)}", flush=True)
 
         launches = serving_phase(serve_index, Path(work), wrappers, card)
+        t0 = time.perf_counter()
+        model_phase(Path(work), args.seed, flash_attention_cuda)
+        launches["flash_attention"] = lm_serving_phase(
+            Path(work), args.seed, flash_attention_cuda, card)
+        print(f"LM phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [
         dict(name="sorted_probe", route="cuda",
@@ -454,6 +739,10 @@ def main() -> None:
              source="src/repro_torch/csrc/tanimoto.cu",
              replaces="src/repro/kernels/tanimoto/kernel.py:135",
              launches=launches["tanimoto"], **tani),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:97",
+             launches=launches["flash_attention"], **attn),
     ]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

@@ -24,7 +24,10 @@
 //   words are loaded once, the query words are broadcast from shared
 //   memory), so the plane is read once per query group, not once per query.
 //   Each (query, slice) keeps a top-k list in shared memory, sorted by
-//   (score desc, row asc).  A row enters only if it beats the list's last
+//   (score desc, row asc).  When even one query per warp does not fit
+//   (k above about 7,260 at W = 32), the lists live in the global
+//   (Q, slices, k) scratch instead, one query per warp, with the same
+//   insert rule, so stage 2 and the answer do not change.  A row enters only if it beats the list's last
 //   entry on (score, row); candidates of a batch enter one at a time in
 //   lane order and the rest are re-checked against the new last entry.  The
 //   warp inserts cooperatively: it counts the entries that beat the new one
@@ -92,7 +95,9 @@ __device__ void warp_insert(float* ls, int* li, int k, float s, int r,
   __syncwarp();
 }
 
-template <int QPW, bool VEC4>
+// GLOBAL: the lists are the warp's own rows of the (nq, n_slices, k) output
+// scratch, not shared memory (QPW is 1 then).
+template <int QPW, bool VEC4, bool GLOBAL>
 __global__ void __launch_bounds__(kWarps * 32)
 tanimoto_slices(const uint32_t* __restrict__ db, const int* __restrict__ dbc,
                 const uint32_t* __restrict__ q, const int* __restrict__ qc,
@@ -115,6 +120,12 @@ tanimoto_slices(const uint32_t* __restrict__ db, const int* __restrict__ dbc,
   }
   float* my_s = lists_s + warp * QPW * k;
   int* my_i = lists_i + warp * QPW * k;
+  if constexpr (GLOBAL) {
+    static_assert(QPW == 1, "global lists hold one query per warp");
+    const int64_t at = (static_cast<int64_t>(q0) * n_slices + slice) * k;
+    my_s = out_s + at;
+    my_i = out_i + at;
+  }
   for (int t = lane; t < QPW * k; t += 32) {
     my_s[t] = -1.0f;
     my_i[t] = INT_MAX;
@@ -191,6 +202,7 @@ tanimoto_slices(const uint32_t* __restrict__ db, const int* __restrict__ dbc,
     }
   }
 
+  if constexpr (GLOBAL) return;  // the lists already are the output
   for (int qi = 0; qi < nql; ++qi) {
     const int64_t dst =
         (static_cast<int64_t>(q0 + qi) * n_slices + slice) * k;
@@ -271,19 +283,20 @@ tanimoto_merge(const float* __restrict__ in_s, const int* __restrict__ in_i,
   }
 }
 
-template <int QPW, bool VEC4>
+template <int QPW, bool VEC4, bool GLOBAL = false>
 cudaError_t launch_slices(const uint32_t* db, const int* dbc,
                           const uint32_t* q, const int* qc, int n, int w,
                           int nq, int k, int n_slices, int rows_per_slice,
                           float* ss, int* si, cudaStream_t stream) {
-  const size_t smem = sizeof(uint32_t) * QPW * w +
-                      (sizeof(float) + sizeof(int)) * kWarps * QPW * k;
+  const size_t lists =
+      GLOBAL ? 0 : (sizeof(float) + sizeof(int)) * kWarps * QPW * k;
+  const size_t smem = sizeof(uint32_t) * QPW * w + lists;
   cudaError_t err = cudaFuncSetAttribute(
-      tanimoto_slices<QPW, VEC4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      tanimoto_slices<QPW, VEC4, GLOBAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + QPW - 1) / QPW, n_slices / kWarps);
-  tanimoto_slices<QPW, VEC4><<<grid, kWarps * 32, smem, stream>>>(
+  tanimoto_slices<QPW, VEC4, GLOBAL><<<grid, kWarps * 32, smem, stream>>>(
       db, dbc, q, qc, n, w, nq, k, n_slices, rows_per_slice, ss, si);
   return cudaGetLastError();
 }
@@ -292,14 +305,15 @@ cudaError_t launch_slices(const uint32_t* db, const int* dbc,
 
 // Shapes: db (n, w), dbc (n,), q (nq, w), qc (nq,); scratch ss/si
 // (nq, n_slices, k); out (nq, k).  n_slices is a multiple of 4, qpw one of
-// 1, 4, 8.  Returns a cudaError_t (0 on success; 1 = invalid value for a
-// plan this file does not build).
+// 1, 4, 8; global_lists (with qpw 1) keeps the stage-1 lists in ss/si.
+// Returns a cudaError_t (0 on success; 1 = invalid value for a plan this
+// file does not build).
 extern "C" int tanimoto_topk_launch(const void* db, const void* dbc,
                                     const void* q, const void* qc, int n,
                                     int w, int nq, int k, int n_slices,
-                                    int rows_per_slice, int qpw, void* ss,
-                                    void* si, void* out_s, void* out_i,
-                                    void* stream) {
+                                    int rows_per_slice, int qpw,
+                                    int global_lists, void* ss, void* si,
+                                    void* out_s, void* out_i, void* stream) {
   if (nq <= 0 || k <= 0 || w <= 0 || n_slices <= 0 || n_slices % kWarps)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* d = static_cast<const uint32_t*>(db);
@@ -319,7 +333,15 @@ extern "C" int tanimoto_topk_launch(const void* db, const void* dbc,
              : launch_slices<QPW_, false>(d, dc, qq, qcc, n, w, nq, k,        \
                                           n_slices, rows_per_slice, s1, i1,   \
                                           st)
-  switch (qpw) {
+  if (global_lists) {
+    if (qpw != 1) return static_cast<int>(cudaErrorInvalidValue);
+    err = vec4 ? launch_slices<1, true, true>(d, dc, qq, qcc, n, w, nq, k,
+                                              n_slices, rows_per_slice, s1,
+                                              i1, st)
+               : launch_slices<1, false, true>(d, dc, qq, qcc, n, w, nq, k,
+                                               n_slices, rows_per_slice, s1,
+                                               i1, st);
+  } else switch (qpw) {
     case 8: TANIMOTO_SLICES(8); break;
     case 4: TANIMOTO_SLICES(4); break;
     case 1: TANIMOTO_SLICES(1); break;

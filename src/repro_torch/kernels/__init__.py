@@ -12,8 +12,11 @@ the kernel for a CUDA tensor, the plain version for a CPU tensor).
                      digest table (the index lookup).
 * ``tanimoto``     — batched Tanimoto top-k over packed fingerprints (the
                      similarity search).
+* ``flash_attention`` — causal / sliding-window GQA attention with an
+                     online softmax (the LM prefill).
 """
 
+from .flash_attention.ops import flash_attention
 from .hash_mix.ops import hash_mix
 from .sorted_probe.ops import sorted_probe
 from .tanimoto.ops import tanimoto_topk

@@ -17,7 +17,7 @@ from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
 from repro_torch.kernels.hash_mix.ref import hash_mix_ref
 from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
 from repro_torch.kernels.sorted_probe.ref import sorted_probe_ref
-from repro_torch.kernels.tanimoto.kernel import MAX_K, tanimoto_topk_cuda
+from repro_torch.kernels.tanimoto.kernel import tanimoto_topk_cuda
 from repro_torch.kernels.tanimoto.ref import tanimoto_topk_ref
 
 pytestmark = pytest.mark.cuda
@@ -80,9 +80,12 @@ def _tie_plane(rng, n, w, distinct):
     (50_000, 32, 37, 32, 64),       # tie flood
     (10_000, 1, 5, 7, 40),          # W = 1 (the scalar path)
     (100_003, 32, 9, 1, 4096),      # k = 1
-    (300_000, 32, 4, MAX_K, 512),   # k = 1,024 over a tie flood
-    (5_000, 2, 3, MAX_K, 100),      # k > N: pads
+    (300_000, 32, 4, 1024, 512),    # k = 1,024 over a tie flood
+    (5_000, 2, 3, 1024, 100),       # k > N: pads
     (20_000, 3, 8, 16, 30),         # odd W
+    (300_000, 32, 6, 2048, 512),    # k = 2,048: lists in shared memory
+    (100_000, 32, 5, 8192, 512),    # k = 8,192: lists in global memory
+    (3_000, 32, 4, 8192, 100),      # global lists, k > N: pads
 ])
 def test_tanimoto_kernel_matches_plain(cuda, n, w, q, k, distinct):
     rng = np.random.default_rng(n + w + k)
@@ -108,8 +111,14 @@ def test_tanimoto_kernel_unaligned_plane_and_limits(cuda):
     s_r, i_r = tanimoto_topk_ref(q.cpu(), view.cpu(), 9)
     np.testing.assert_array_equal(s.cpu().numpy(), s_r.numpy())
     np.testing.assert_array_equal(i.cpu().numpy(), i_r.numpy())
-    with pytest.raises(ValueError, match=str(MAX_K)):
-        tanimoto_topk_cuda(q, view, MAX_K + 1)
+    # any k the reference answers: k > N pads, only k < 1 is refused
+    s, i = tanimoto_topk_cuda(q, view, 5000)
+    s_r, i_r = tanimoto_topk_ref(q.cpu(), view.cpu(), 5000)
+    np.testing.assert_array_equal(s.cpu().numpy(), s_r.numpy())
+    np.testing.assert_array_equal(i.cpu().numpy(), i_r.numpy())
+    assert (i[:, 4000:] == -1).all()
+    with pytest.raises(ValueError, match="k must be"):
+        tanimoto_topk_cuda(q, view, 0)
 
 
 def test_serve_index_similarity_parity_on_the_card(cuda):
@@ -123,3 +132,92 @@ def test_serve_index_similarity_parity_on_the_card(cuda):
     out = serve_index.run(args)
     assert out["parity"] == 64 and out["service"]["errors"] == 0
     assert tanimoto_topk_cuda.launches > before
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window): the CPU file's FA_CASES, the
+# ragged and cross-attention cases, D = 48 and 256, rows that see no key
+FA_CARD_CASES = [
+    (1, 2, 2, 256, 256, 64, True, None),
+    (2, 4, 2, 256, 256, 64, True, None),
+    (1, 2, 1, 128, 384, 32, True, None),
+    (1, 2, 2, 256, 256, 64, True, 128),
+    (1, 4, 4, 256, 256, 128, False, None),
+    (1, 8, 1, 128, 128, 64, True, None),
+    (1, 4, 2, 100, 177, 32, True, None),
+    (2, 2, 1, 17, 17, 48, True, 8),
+    (1, 4, 4, 131, 131, 64, True, 50),
+    (1, 4, 2, 37, 101, 32, False, None),
+    (1, 4, 2, 300, 300, 256, True, 100),
+    (1, 2, 1, 256, 128, 32, True, None),
+    (2, 8, 2, 1000, 1000, 128, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FA_CARD_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, sq, skv,
+                                              d, causal, window):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(b + hq + sq + skv + d)
+    q = torch.from_numpy(rng.standard_normal((b, sq, hq, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, skv, hkv, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, skv, hkv, d), np.float32))
+    # the model's layout: (B, S, H, D) viewed as (B, H, S, D), not contiguous
+    q, k, v = (t.to(cuda, dt).transpose(1, 2) for t in (q, k, v))
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    # the plain version on the same values in float32, before any cast: a
+    # bfloat16 output may be off by its rounding, half a step (2^-8 |x|),
+    # plus float32 arithmetic (the f32 cases agree within 2e-5)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                               window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dt and got.shape == (b, hq, sq, d)
+    tol = dict(atol=2e-5, rtol=2e-5) if dt == torch.float32 else dict(atol=1e-4, rtol=2.0 ** -8)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **tol)
+
+
+def test_lm_smoke_prefill_on_the_card_matches_the_cpu(cuda):
+    """The smoke yi-6b in float32: card logits (through the kernel) against
+    the CPU's (through the plain version) on the same weights."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models.transformer import init_lm, lm_decode_step, lm_prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("yi-6b").smoke(), dtype="float32")
+    model = init_lm(cfg, torch.Generator(device="cpu").manual_seed(0), "cpu")
+    card = copy.deepcopy(model).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 259, (3, 77)))
+    lens = torch.tensor([77, 40, 1])
+    before = flash_attention_cuda.launches
+    got, cache = lm_prefill(card, cfg, toks.to(cuda), max_len=96, lengths=lens.to(cuda))
+    want, cpu_cache = lm_prefill(model, cfg, toks, max_len=96, lengths=lens)
+    assert flash_attention_cuda.launches == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+    tok = torch.argmax(want, -1)[:, None]
+    got, _ = lm_decode_step(card, cfg, tok.to(cuda), lens.to(cuda), cache)
+    want, _ = lm_decode_step(model, cfg, tok, lens, cpu_cache)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_lm_smoke_serving_on_the_card(cuda):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch import serve
+
+    before = flash_attention_cuda.launches
+    out = serve.run(serve.build_parser().parse_args(
+        ["--device", "cuda", "--max-new-tokens", "6", "--max-len", "64",
+         "--repeats", "2", "--prompts", "InChI=1S/C12H22O2/", "C", "x" * 50]))
+    assert out["device"].startswith("cuda")
+    assert out["runs"][0]["token_ids"] == out["runs"][1]["token_ids"]
+    assert flash_attention_cuda.launches == before + 2 * out["n_layers"]

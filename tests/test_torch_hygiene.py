@@ -56,7 +56,16 @@ def test_importing_every_port_module_pulls_in_no_jax_triton_or_repro():
                 "repro_torch.service.api", "repro_torch.service.health",
                 "repro_torch.service.loadgen", "repro_torch.service.router",
                 "repro_torch.service.scheduler",
-                "repro_torch.service.transport"):
+                "repro_torch.service.transport",
+                "repro_torch.configs", "repro_torch.configs.base",
+                "repro_torch.configs.yi_6b", "repro_torch.configs.gemma3_12b",
+                "repro_torch.data.tokenizer", "repro_torch.checkpoint.manager",
+                "repro_torch.models.common", "repro_torch.models.transformer",
+                "repro_torch.models.weights", "repro_torch.models.registry",
+                "repro_torch.kernels.flash_attention.kernel",
+                "repro_torch.kernels.flash_attention.ref",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.serve.engine", "repro_torch.launch.serve"):
         assert mod in report["imported"]
 
 

@@ -25,11 +25,7 @@ from repro.core.store import merge_similar_topk as r_merge
 from repro.kernels.tanimoto.ops import tanimoto_topk as r_tanimoto_topk
 from repro.kernels.tanimoto.ref import tanimoto_topk_ref as r_ref
 from repro_torch.core.store import merge_similar_topk as t_merge
-from repro_torch.kernels.tanimoto.kernel import (
-    MAX_K,
-    plan,
-    tanimoto_topk_cuda,
-)
+from repro_torch.kernels.tanimoto.kernel import plan, tanimoto_topk_cuda
 from repro_torch.kernels.tanimoto.ops import tanimoto_topk
 from repro_torch.kernels.tanimoto.ref import row_counts, tanimoto_topk_ref
 
@@ -177,13 +173,19 @@ def test_ops_dispatch_cpu_to_plain_and_wrapper_refuses_cpu():
 
 
 @pytest.mark.parametrize("nq,n,w,k", [
-    (64, 176_929_690, 32, 32), (256, 4_194_304, 32, MAX_K), (1, 6250, 32, 32),
-    (512, 6250, 32, 32), (3, 100, 1, MAX_K), (100_000, 10_000, 32, MAX_K),
+    (64, 176_929_690, 32, 32), (256, 4_194_304, 32, 1024), (1, 6250, 32, 32),
+    (512, 6250, 32, 32), (3, 100, 1, 1024), (100_000, 10_000, 32, 1024),
+    (256, 4_194_304, 32, 2048), (7, 300_000, 32, 7_260), (7, 300_000, 32, 7_261),
+    (5, 100_000, 32, 8192), (3, 100, 32, 100_000), (1, 10, 1, 2**20),
 ])
 def test_launch_plan_fits_the_kernel(nq, n, w, k):
-    qpw, slices, rows = plan(nq, n, w, k)
+    qpw, slices, rows, in_global = plan(nq, n, w, k)
     assert qpw in (1, 4, 8) and (qpw <= nq or qpw == 1)
-    assert 4 * qpw * w + 8 * 4 * qpw * k <= 232_448  # stage-1 shared memory
+    smem_lists = 0 if in_global else 8 * 4 * qpw * k
+    assert 4 * qpw * w + smem_lists <= 232_448  # stage-1 shared memory
+    # lists go to global memory only where one query per warp cannot fit
+    assert in_global == (4 * w + 8 * 4 * k > 232_448)
+    assert not in_global or qpw == 1
     assert slices % 4 == 0 and 4 <= slices <= 12_288
     assert rows == -(-n // slices)
 
