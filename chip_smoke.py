@@ -27,7 +27,12 @@
    ``torch.nn.functional.scaled_dot_product_attention`` timed beside it.
    Prints each kernel's time, the plain version's, a PyTorch library
    call's where one computes the same function, and the least time the
-   card could take (its bound).
+   card could take (its bound).  ``ssd_scan`` against its plain version,
+   bit for bit, in float32 at mamba2-1.3b's served prefill shape (BH =
+   8 x 64 heads, C = 8 chunks of 256, P = 64, N = 128) and at one
+   65,536-token prompt's (BH = 64, C = 256); states from ``randn``, decay
+   uniform in [0, 1); no PyTorch call computes the scan (``library_ms``
+   null).
 3. The funnel end to end on the card through ``repro_torch.launch.funnel``
    (corpus, index, publish, intersect, lookup_batch, extract + verify) at
    100,000 records, plus an extraction through 17-bit hashed keys whose
@@ -59,7 +64,22 @@
    ``generate`` of the served engine under ``torch.profiler``: for its
    prefill and its decode, the card's busy share and the kernels that take
    the most device time.
-7. A ``{"kernels": [...]}`` line, the card line, and as the last line
+7. A model check of the recurrent families, in float32 with TF32 off,
+   weights made once and loaded into a card model and a CPU model:
+   mamba2-1.3b at full width cut to 2 layers, and jamba-1.5-large-398b's
+   smoke config (no hybrid config of the repo fits one card).  The prefill
+   logits of two ragged corpus prompts (601 and 98 tokens) must agree
+   within ``MODEL_ATOL``/``MODEL_RTOL``; ``ssd_scan`` must launch once per
+   Mamba layer, and on the hybrid ``flash_attention`` once per super-block.
+8. SSM serving through ``repro_torch.launch.serve.run``: mamba2-1.3b at
+   its published widths and full depth (48 layers, d_model 2,048, 64 SSD
+   heads of 64, state 128), bfloat16, random weights drawn on the card
+   from ``--seed``, the same 8 prompts as step 6, 32 new tokens, served
+   twice: the two runs must give the same tokens, and ``ssd_scan`` must
+   have launched exactly 48 times per prefill and never in decode (launch
+   counts set to 0 just before the phase).  Then the served engine under
+   ``torch.profiler``, as in step 6.
+9. A ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 
 Needs one CUDA card; exits non-zero without one.
@@ -116,7 +136,14 @@ FA_GEMMA = ("gemma3-12b", 1, 16, 8, 4096, 256, 1024)
 FA_RTOL = 2.0 ** -8
 FA_ATOL = 1e-4
 FA_DROP = 64
+F32_FLOPS_PER_S = 67e12    # float32 on the CUDA cores (H100 SXM)
+# ssd_scan cases: (name, BH, C, P, N).  "prefill" is mamba2-1.3b's served
+# prefill (B = 8 x 64 heads, padded S = 2,048 in chunks of 256); "long" one
+# 65,536-token prompt (256 chunks)
+SSD_PREFILL = ("prefill", 512, 8, 64, 128)
+SSD_LONG = ("long-prompt", 64, 256, 64, 128)
 MODEL_LAYERS = 2           # the model check's depth cut
+SSM_MODEL_LENGTHS = (600, 97)  # prompt bytes: 601 tokens span 3 chunks of 256
 MODEL_ATOL = MODEL_RTOL = 1e-3  # float32 logits, card vs CPU, 2 layers
 SERVE_LENGTHS = (17, 64, 160, 384, 768, 1152, 1600, 2047)  # prompt bytes
 SERVE_NEW_TOKENS = 32
@@ -469,6 +496,43 @@ def attention_case(case, seed: int):
                 bound_by=by, max_abs_err=err)
 
 
+def ssd_scan_case(case, seed: int):
+    """Hold ssd_scan's kernel to its plain version on the card, bit for bit
+    (both multiply, then add, in float32); time both."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    name, bh, c, p, n = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 5)
+    states = torch.randn((bh, c, p, n), generator=g, device=dev)
+    decay = torch.rand((bh, c), generator=g, device=dev)   # uniform in [0, 1)
+    got = ssd_scan_cuda(states, decay)
+    want = ssd_scan_ref(states, decay)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        fail(f"ssd_scan {name}: kernel disagrees with plain version ({bad} outputs)")
+    err = float((got - want).abs().max())
+    del got, want
+    ms = cuda_ms(lambda: ssd_scan_cuda(states, decay), 20)
+    plain = cuda_ms(lambda: ssd_scan_ref(states, decay), 3, warmup=1)
+    nbytes = 2 * states.numel() * 4 + decay.numel() * 4
+    flops = 2 * states.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"ssd_scan[{name}]: BH={bh} C={c} P={p} N={n} f32 bit-exact; "
+          f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms=null (no PyTorch "
+          f"call computes this scan) bytes={nbytes} flops={flops} "
+          f"bound_ms={bnd:.6f} ({by})", flush=True)
+    del states, decay
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                bound_by=by, max_abs_err=err)
+
+
 def corpus_prompts(work: Path, lengths) -> list:
     """Prompts cut from the funnel corpus's records: the i-th starts at the
     i-th record's id line and runs ``lengths[i]`` bytes (records are ASCII)."""
@@ -504,97 +568,131 @@ def prompt_batch(prompts):
     return toks, torch.tensor([len(r) for r in ids])
 
 
-def model_phase(work: Path, seed: int, fa_cuda) -> int:
-    """yi-6b at full width, 2 layers, float32: prefill logits on the card
-    against the CPU on the same weights; returns the card's launches."""
-    import copy
+def model_cases():
+    """The model checks, in float32, as ``{phase: [(name, cfg, init,
+    prefill, prompt bytes, kernel launches wanted), ...]}``: yi-6b and
+    mamba2-1.3b at full width cut to ``MODEL_LAYERS`` layers, and jamba's
+    smoke config (no hybrid config of the repo fits one card)."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models.hybrid import _layout, hybrid_prefill, init_hybrid
+    from repro_torch.models.ssm import init_ssm, ssm_prefill
     from repro_torch.models.transformer import init_lm, lm_prefill
+
+    def cut(arch):
+        return dataclasses.replace(get_config(arch), n_layers=MODEL_LAYERS,
+                                   dtype="float32")
+
+    jamba = dataclasses.replace(get_config("jamba-1.5-large-398b").smoke(),
+                                dtype="float32")
+    n_blocks, _, mamba_pos, _, _ = _layout(jamba)
+    return {
+        "dense": [("yi-6b full width, 2 layers", cut("yi-6b"), init_lm, lm_prefill,
+                   (255, 97), {"flash_attention": MODEL_LAYERS})],
+        "recurrent": [
+            ("mamba2-1.3b full width, 2 layers", cut("mamba2-1.3b"), init_ssm,
+             ssm_prefill, SSM_MODEL_LENGTHS, {"ssd_scan": MODEL_LAYERS}),
+            ("jamba-1.5-large-398b smoke", jamba, init_hybrid, hybrid_prefill,
+             SSM_MODEL_LENGTHS, {"flash_attention": n_blocks,
+                                 "ssd_scan": n_blocks * len(mamba_pos)}),
+        ],
+    }
+
+
+def model_phase(work: Path, seed: int, cases, wrappers) -> None:
+    """For each case: weights made once on the CPU and copied to the card,
+    prefill logits of two ragged corpus prompts on the card against the
+    CPU's, in float32 with TF32 off, and the card's kernel launches
+    (``wrappers``' counts) against the ones wanted."""
+    import copy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=MODEL_LAYERS,
-                              dtype="float32")
-    t0 = time.perf_counter()
-    g = torch.Generator(device="cpu")
-    g.manual_seed(seed)
-    cpu_model = init_lm(cfg, g, "cpu")
-    card_model = copy.deepcopy(cpu_model).to("cuda")
-    toks, lens = prompt_batch(corpus_prompts(work, (255, 97)))
-    want, _ = lm_prefill(cpu_model, cfg, toks, lengths=lens)
-    fa_cuda.launches = 0
-    got, cache = lm_prefill(card_model, cfg, toks.cuda(), lengths=lens.cuda())
-    torch.cuda.synchronize()
-    launches = fa_cuda.launches
-    got = got.cpu()
-    if got.shape != (2, cfg.vocab_size) or not torch.isfinite(got).all():
-        fail(f"model check: logits {tuple(got.shape)} not finite or misshaped")
-    err = float((got - want).abs().max())
-    ok = torch.allclose(got, want, atol=MODEL_ATOL, rtol=MODEL_RTOL)
-    print(f"model check: yi-6b full width, {MODEL_LAYERS} layers, float32, "
-          f"allow_tf32=False; prompts {lens.tolist()} tokens; card vs CPU "
-          f"prefill logits max_abs_err={err:.6g} (atol {MODEL_ATOL}, rtol "
-          f"{MODEL_RTOL}); flash_attention launches {launches}; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if not ok:
-        fail(f"model check: card logits differ from the CPU's (max {err})")
-    if launches != MODEL_LAYERS:
-        fail(f"model check: {launches} flash_attention launches for "
-             f"{MODEL_LAYERS} layers")
-    del cpu_model, card_model, cache, got
-    torch.cuda.empty_cache()
-    return launches
+    for name, cfg, init, prefill, lengths, want_launches in cases:
+        t0 = time.perf_counter()
+        g = torch.Generator(device="cpu")
+        g.manual_seed(seed)
+        cpu_model = init(cfg, g, "cpu")
+        card_model = copy.deepcopy(cpu_model).to("cuda")
+        toks, lens = prompt_batch(corpus_prompts(work, lengths))
+        want, _ = prefill(cpu_model, cfg, toks, lengths=lens)
+        for fn in wrappers.values():
+            fn.launches = 0
+        got, cache = prefill(card_model, cfg, toks.cuda(), lengths=lens.cuda())
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        got = got.cpu()
+        if got.shape != (2, cfg.vocab_size) or not torch.isfinite(got).all():
+            fail(f"model check {name}: logits {tuple(got.shape)} not finite or "
+                 "misshaped")
+        err = float((got - want).abs().max())
+        ok = torch.allclose(got, want, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+        print(f"model check: {name}, float32, allow_tf32=False; prompts "
+              f"{lens.tolist()} tokens; card vs CPU prefill logits "
+              f"max_abs_err={err:.6g} (atol {MODEL_ATOL}, rtol {MODEL_RTOL}); "
+              f"launches {json.dumps(launches)}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not ok:
+            fail(f"model check {name}: card logits differ from the CPU's (max {err})")
+        for kernel, n in launches.items():
+            if n != want_launches.get(kernel, 0):
+                fail(f"model check {name}: {n} {kernel} launches, want "
+                     f"{want_launches.get(kernel, 0)}")
+        del cpu_model, card_model, cache, got
+        torch.cuda.empty_cache()
 
 
-def lm_serving_phase(work: Path, seed: int, fa_cuda, card: str) -> int:
-    """yi-6b, full width and depth, bfloat16, through launch.serve.run;
-    returns flash_attention's launches over the phase."""
+def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str) -> int:
+    """``arch`` at its published widths and full depth, bfloat16, through
+    launch.serve.run; ``wrapper``'s kernel must launch exactly once per
+    layer per prefill.  Returns its launches over the phase."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
+    name = wrapper.__name__.removesuffix("_cuda")
     prompts = corpus_prompts(work, SERVE_LENGTHS)
     args = serve.build_parser().parse_args([
-        "--arch", "yi-6b", "--full-config", "--device", "cuda",
+        "--arch", arch, "--full-config", "--device", "cuda",
         "--seed", str(seed), "--max-new-tokens", str(SERVE_NEW_TOKENS),
         "--max-len", str(SERVE_MAX_LEN), "--repeats", "2", "--prompts", *prompts,
     ])
     torch.cuda.reset_peak_memory_stats()
-    fa_cuda.launches = 0
+    wrapper.launches = 0
     t0 = time.perf_counter()
     out = serve.run(args)
-    launches = fa_cuda.launches
+    launches = wrapper.launches
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     runs = out["runs"]
     if runs[0]["token_ids"] != runs[1]["token_ids"]:
-        fail("LM serving: the two generate calls gave different tokens")
-    vocab = get_config("yi-6b").vocab_size
+        fail(f"{arch} serving: the two generate calls gave different tokens")
+    vocab = get_config(arch).vocab_size
     for row in runs[0]["token_ids"]:
         if not row or any(not 0 <= t < vocab for t in row):
-            fail(f"LM serving: bad token row {row[:8]}")
+            fail(f"{arch} serving: bad token row {row[:8]}")
     want = 2 * out["n_layers"]
     if launches != want:
-        fail(f"LM serving: {launches} flash_attention launches, want {want} "
-             f"(one per layer per prefill)")
+        fail(f"{arch} serving: {launches} {name} launches, want {want} "
+             f"(one per layer per prefill, none in decode)")
     for i, r in enumerate(runs):
-        print(f"lm_serving[yi-6b] run {i}: B={out['batch']} prompt tokens "
+        print(f"lm_serving[{arch}] run {i}: B={out['batch']} prompt tokens "
               f"{out['prompt_tokens']}; prefill_ms={r['prefill_ms']:.3f} "
               f"decode {r['decode_steps']} steps in {r['decode_ms']:.3f} ms = "
               f"{r['decode_tokens_per_s']:.1f} tokens/s; card: {card}", flush=True)
-    print(f"lm_serving[yi-6b]: {out['n_layers']} layers bf16, init "
+    print(f"lm_serving[{arch}]: {out['n_layers']} layers bf16, init "
           f"{out['init_s']:.1f} s, weight_bytes={out['weight_bytes']} "
-          f"kv_cache_bytes={out['kv_cache_bytes']} peak_allocated={peak} (this "
-          f"phase); flash_attention launches {launches} ({launches // 2} per "
-          f"prefill); tokens identical over 2 runs; {secs:.1f} s", flush=True)
-    profile_generate(out.pop("engine"), prompts, card)
+          f"cache_bytes={out['kv_cache_bytes']} (summed over the cache prefill "
+          f"allocated) peak_allocated={peak} (this phase); {name} launches "
+          f"{launches} ({launches // 2} per prefill); tokens identical over 2 "
+          f"runs; {secs:.1f} s", flush=True)
+    profile_generate(out.pop("engine"), prompts, card, arch)
     del out
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_generate(engine, prompts, card: str) -> None:
+def profile_generate(engine, prompts, card: str, arch: str) -> None:
     """Where serving's time goes: one more ``generate`` of the served engine
     under ``torch.profiler``.  For its ``Engine.prefill`` and
     ``Engine.decode`` spans: the span's wall time, the card's busy time in
@@ -615,7 +713,7 @@ def profile_generate(engine, prompts, card: str) -> None:
         span = spans.get(name)
         inside = [e for e in device if span and span.start <= e.time_range.start < span.end]
         if not inside:
-            print(f"lm_profile[{name}]: the profiler saw no device events in "
+            print(f"lm_profile[{arch}][{name}]: the profiler saw no device events in "
                   "it: busy share not measured", flush=True)
             continue
         wall = span.elapsed_us()
@@ -626,7 +724,7 @@ def profile_generate(engine, prompts, card: str) -> None:
             per_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
         tops = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:5]
         top = "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{n}" for k, (t, n) in tops)
-        print(f"lm_profile[{name}]: wall {wall / 1e3:.3f} ms under the profiler, "
+        print(f"lm_profile[{arch}][{name}]: wall {wall / 1e3:.3f} ms under the profiler, "
               f"device busy {busy / 1e3:.3f} ms = {busy / wall:.3f} of it "
               f"({len(inside)} device events); top: {top}; card: {card}", flush=True)
 
@@ -675,6 +773,7 @@ def main() -> None:
         from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
         from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
         from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
+        from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
         from repro_torch.kernels.tanimoto.kernel import tanimoto_topk_cuda
         from repro_torch.launch import serve_index
         from repro_torch.launch.funnel import run_funnel
@@ -701,6 +800,8 @@ def main() -> None:
     tani = tanimoto_phase(args.seed)
     attn = attention_case(FA_YI, args.seed)
     attention_case(FA_GEMMA, args.seed)
+    ssd = ssd_scan_case(SSD_PREFILL, args.seed)
+    ssd_scan_case(SSD_LONG, args.seed)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     wrappers = {"sorted_probe": sorted_probe_cuda, "hash_mix": hash_mix_cuda,
@@ -721,10 +822,18 @@ def main() -> None:
 
         launches = serving_phase(serve_index, Path(work), wrappers, card)
         t0 = time.perf_counter()
-        model_phase(Path(work), args.seed, flash_attention_cuda)
+        checks = model_cases()
+        lm_wrappers = {"flash_attention": flash_attention_cuda,
+                       "ssd_scan": ssd_scan_cuda}
+        model_phase(Path(work), args.seed, checks["dense"], lm_wrappers)
         launches["flash_attention"] = lm_serving_phase(
-            Path(work), args.seed, flash_attention_cuda, card)
+            Path(work), args.seed, "yi-6b", flash_attention_cuda, card)
         print(f"LM phases: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        model_phase(Path(work), args.seed, checks["recurrent"], lm_wrappers)
+        launches["ssd_scan"] = lm_serving_phase(
+            Path(work), args.seed, "mamba2-1.3b", ssd_scan_cuda, card)
+        print(f"SSM phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [
         dict(name="sorted_probe", route="cuda",
@@ -743,6 +852,10 @@ def main() -> None:
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:97",
              launches=launches["flash_attention"], **attn),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:36",
+             launches=launches["ssd_scan"], **ssd),
     ]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

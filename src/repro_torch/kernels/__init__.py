@@ -14,9 +14,12 @@ the kernel for a CUDA tensor, the plain version for a CPU tensor).
                      similarity search).
 * ``flash_attention`` — causal / sliding-window GQA attention with an
                      online softmax (the LM prefill).
+* ``ssd_scan``     — the Mamba2 SSD inter-chunk state scan (the SSM and
+                     hybrid prefill).
 """
 
 from .flash_attention.ops import flash_attention
 from .hash_mix.ops import hash_mix
 from .sorted_probe.ops import sorted_probe
+from .ssd_scan.ops import ssd_scan
 from .tanimoto.ops import tanimoto_topk

@@ -10,11 +10,12 @@ serving engine programs against:
   cache_init(batch, max_len, device="cuda") → cache
 
 ``batch["lengths"]`` (B,) makes prefill read each sequence's true last
-prompt position.  The dense and VLM families are ported.  ``loss``
-(training, ROADMAP Queue 1 item 7) and the paged-cache entry points of
-continuous batching (item 6b) are ``None`` until their slices; MoE (item
-5b), the hybrid and SSM families (item 8) and encoder-decoder (item 9)
-raise ``NotImplementedError``.
+prompt position.  The dense, VLM, SSM (mamba2) and hybrid (Jamba)
+families are ported.  ``loss`` (training, ROADMAP Queue 1 item 7) and the
+paged-cache entry points of continuous batching (item 6b) are ``None``
+until their slices; the transformer's MoE family (item 5b: wiring
+``moe_apply`` into its decoder layers) and encoder-decoder (item 9) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import hybrid, ssm, transformer
 
 __all__ = ["ModelApi", "build_model"]
 
@@ -65,10 +66,29 @@ def _transformer_api(cfg: ModelConfig) -> ModelApi:
     )
 
 
+# the SSM and hybrid families: (init, prefill, decode_step, cache_init)
+_RECURRENT = {
+    "ssm": (ssm.init_ssm, ssm.ssm_prefill, ssm.ssm_decode_step, ssm.ssm_cache_init),
+    "hybrid": (hybrid.init_hybrid, hybrid.hybrid_prefill,
+               hybrid.hybrid_decode_step, hybrid.hybrid_cache_init),
+}
+
+
+def _recurrent_api(cfg: ModelConfig) -> ModelApi:
+    init, prefill, decode_step, cache_init = _RECURRENT[cfg.family]
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator, device="cuda": init(cfg, generator, device),
+        prefill=lambda m, batch, max_len=None: prefill(
+            m, cfg, batch["tokens"], max_len=max_len, lengths=batch.get("lengths")),
+        decode_step=lambda m, t, pos, c: decode_step(m, cfg, t, pos, c),
+        cache_init=lambda b, m, device="cuda": cache_init(cfg, b, m, device),
+    )
+
+
 _LATER = {
-    "moe": "item 5b (models/moe.py)",
-    "hybrid": "item 8 (models/hybrid.py, the ssd_scan kernel)",
-    "ssm": "item 8 (models/ssm.py, the ssd_scan kernel)",
+    "moe": ("item 5b (wiring models/moe.py's moe_apply into the transformer's "
+            "DecoderLayer)"),
     "encdec": "item 9 (models/encdec.py)",
 }
 
@@ -76,6 +96,8 @@ _LATER = {
 def build_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family in ("dense", "vlm"):
         return _transformer_api(cfg)
+    if cfg.family in _RECURRENT:
+        return _recurrent_api(cfg)
     if cfg.family in _LATER:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "

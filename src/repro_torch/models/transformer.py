@@ -10,7 +10,8 @@ Entry points: ``init_lm``, ``lm_forward``, ``lm_cache_init``, ``lm_prefill``
 (forward + KV cache build) and ``lm_decode_step`` (one-token serve).  The
 cache is a list with one ``{"k", "v"}`` dict per layer, each ``(B, Hkv,
 slots, Dh)``; the reference stacks the same arrays per scan position.
-MoE layers, the paged cache and training are later slices (ROADMAP).
+MoE decoder layers, the paged cache and training are later slices
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -80,8 +81,9 @@ def layer_windows(cfg: ModelConfig) -> List[Optional[int]]:
 def _require_dense(cfg: ModelConfig) -> None:
     if cfg.n_experts > 0 and cfg.family == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            "item 5b, models/moe.py)"
+            f"{cfg.name}: the transformer's MoE layers are not wired yet "
+            "(ROADMAP Queue 1 item 5b: models/moe.py's moe_apply in "
+            "DecoderLayer)"
         )
 
 

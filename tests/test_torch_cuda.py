@@ -221,3 +221,94 @@ def test_lm_smoke_serving_on_the_card(cuda):
     assert out["device"].startswith("cuda")
     assert out["runs"][0]["token_ids"] == out["runs"][1]["token_ids"]
     assert flash_attention_cuda.launches == before + 2 * out["n_layers"]
+
+
+# (BH, C, P, N): the CPU file's SSD_CASES, an odd P·N (the one-float path)
+# and mamba2-1.3b's served prefill shape
+SSD_CARD_CASES = [(2, 4, 8, 16), (6, 16, 64, 128), (1, 1, 4, 4), (3, 32, 16, 32),
+                  (5, 7, 3, 5), (512, 8, 64, 128)]
+
+
+@pytest.mark.parametrize("bh,c,p,n", SSD_CARD_CASES)
+def test_ssd_scan_kernel_matches_plain_bit_for_bit(cuda, bh, c, p, n):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    rng = np.random.default_rng(bh * 10 + c)
+    states = torch.from_numpy(rng.standard_normal((bh, c, p, n)).astype(np.float32))
+    decay = torch.from_numpy(rng.uniform(0.0, 1.0, (bh, c)).astype(np.float32))
+    states, decay = states.to(cuda), decay.to(cuda)
+    before = ssd_scan_cuda.launches
+    got = ssd_scan_cuda(states, decay)
+    want = ssd_scan_ref(states, decay)       # the plain version on the card
+    torch.cuda.synchronize()
+    assert ssd_scan_cuda.launches == before + 1
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ssd_scan_ref(states.cpu(), decay.cpu()).numpy())
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    s = torch.zeros((2, 3, 4, 4), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan_cuda(s.half(), torch.ones((2, 3), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_cuda(s.transpose(2, 3), torch.ones((2, 3), device=cuda))
+    # an unaligned view takes the one-float path
+    flat = torch.randn(1 + 2 * 3 * 4 * 4, device=cuda)
+    view = flat[1:].view(2, 3, 4, 4)
+    decay = torch.rand((2, 3), device=cuda)
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    assert torch.equal(ssd_scan_cuda(view, decay), ssd_scan_ref(view, decay))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_recurrent_smoke_models_on_the_card_match_the_cpu(cuda, arch):
+    """The f32 smoke configs: card prefill and decode (through the kernels)
+    against the CPU's (through the plain versions) on the same weights."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    api = build_model(cfg)
+    model = api.init(torch.Generator(device="cpu").manual_seed(0), "cpu")
+    card = copy.deepcopy(model).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 259, (3, 77)))
+    lens = torch.tensor([77, 40, 2])
+    batch = {"tokens": toks, "lengths": lens}
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    before = (flash_attention_cuda.launches, ssd_scan_cuda.launches)
+    got, cache = api.prefill(card, card_batch, max_len=96)
+    want, cpu_cache = api.prefill(model, batch, max_len=96)
+    n_attn = cfg.n_layers // cfg.hybrid_block if cfg.family == "hybrid" else 0
+    assert (flash_attention_cuda.launches - before[0],
+            ssd_scan_cuda.launches - before[1]) == (n_attn, cfg.n_layers - n_attn)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+    for _ in range(3):
+        tok = torch.argmax(want, -1)[:, None]
+        got, cache = api.decode_step(card, tok.to(cuda), lens.to(cuda), cache)
+        want, cpu_cache = api.decode_step(model, tok, lens, cpu_cache)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        lens = lens + 1
+
+
+def test_mamba2_smoke_serving_on_the_card(cuda):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.launch import serve
+
+    before = ssd_scan_cuda.launches
+    out = serve.run(serve.build_parser().parse_args(
+        ["--arch", "mamba2-1.3b", "--device", "cuda", "--max-new-tokens", "6",
+         "--repeats", "2", "--prompts", "InChI=1S/C12H22O2/", "C", "x" * 50]))
+    assert out["device"].startswith("cuda")
+    assert out["runs"][0]["token_ids"] == out["runs"][1]["token_ids"]
+    assert ssd_scan_cuda.launches == before + 2 * out["n_layers"]

@@ -65,7 +65,14 @@ def test_importing_every_port_module_pulls_in_no_jax_triton_or_repro():
                 "repro_torch.kernels.flash_attention.kernel",
                 "repro_torch.kernels.flash_attention.ref",
                 "repro_torch.kernels.flash_attention.ops",
-                "repro_torch.serve.engine", "repro_torch.launch.serve"):
+                "repro_torch.serve.engine", "repro_torch.launch.serve",
+                "repro_torch.kernels.ssd_scan.kernel",
+                "repro_torch.kernels.ssd_scan.ref",
+                "repro_torch.kernels.ssd_scan.ops",
+                "repro_torch.models.mamba2", "repro_torch.models.ssm",
+                "repro_torch.models.moe", "repro_torch.models.hybrid",
+                "repro_torch.configs.mamba2_13b",
+                "repro_torch.configs.jamba15_large_398b"):
         assert mod in report["imported"]
 
 
