@@ -20,11 +20,16 @@
    pads, and the stage-1 lists in global memory).  ``flash_attention``
    against its plain version in bfloat16 at the LM prefill's shape (yi-6b:
    B = 8, Hq = 32, Hkv = 4, S = 2,048, D = 128, causal) and at gemma3-12b's
-   (B = 1, Hq = 16, Hkv = 8, S = 4,096, D = 256, window 1,024), held to
-   the plain version's float32 output on the same values within the bf16
-   cast's rounding (``FA_RTOL`` |ref| + ``FA_ATOL``), a bound that a
-   variant losing one key tile must exceed, with
-   ``torch.nn.functional.scaled_dot_product_attention`` timed beside it.
+   (B = 1, Hq = 16, Hkv = 8, S = 4,096, D = 256, window 1,024), both on
+   the tensor-core route, held to the plain version's float32 output on
+   the same values within 2^-8 |ref| + 2^-8 A(|v|) + 1e-4 (the bf16
+   rounding of the output and of P; ``flash_attention_ref.bound_excess``),
+   a bound that a variant losing one key tile must exceed, with
+   ``torch.nn.functional.scaled_dot_product_attention`` timed beside it
+   and its output read under the same bound and the output-cast-only one.
+   After the build, ``cuobjdump -sass`` of the built library must show
+   ``HGMMA`` and ``UTMALDG`` in the tensor-core kernel, and ptxas no spills
+   in either kernel of ``flash_attention.cu``.
    Prints each kernel's time, the plain version's, a PyTorch library
    call's where one computes the same function, and the least time the
    card could take (its bound).  ``ssd_scan`` against its plain version,
@@ -60,7 +65,8 @@
    padded prefill is B = 8 x S = 2,048), 32 new tokens, ``max_len``
    4,096, served twice: the two runs must give the same tokens, and
    ``flash_attention`` must have launched exactly once per layer per
-   prefill (launch counts set to 0 just before the phase).  Then a third
+   prefill, all on the tensor-core route (launch counts set to 0 just
+   before the phase).  Then a third
    ``generate`` of the served engine under ``torch.profiler``: for its
    prefill and its decode, the card's busy share and the kernels that take
    the most device time.
@@ -128,13 +134,18 @@ BF16_FLOPS_PER_S = 989e12  # tensor-core bf16 peak (H100 SXM, dense)
 FA_YI = ("yi-6b", 8, 32, 4, 2048, 128, None)
 FA_GEMMA = ("gemma3-12b", 1, 16, 8, 4096, 256, 1024)
 # flash_attention in bfloat16 against the plain version's float32 output on
-# the same values: |err| <= FA_RTOL * |ref| + FA_ATOL.  FA_RTOL is the bf16
-# cast's rounding (half a step: 8 significant bits), FA_ATOL covers float32
-# arithmetic (the f32 card tests agree within 2e-5).  A known-wrong variant,
-# the plain version that loses the first FA_DROP keys of every row, must
-# read above that bound, or the check could not see a lost key tile.
-FA_RTOL = 2.0 ** -8
-FA_ATOL = 1e-4
+# the same values (``bound_excess`` of the plain version's module):
+#   CUDA-core route: |err| <= u |ref| + atol, u = 2^-8 the bf16 cast's
+#     rounding (half a step: 8 significant bits), atol = 1e-4 float32
+#     arithmetic (the f32 card tests agree within 2e-5);
+#   tensor-core route: |err| <= u |ref| + u A(|v|) + atol.  The kernel also
+#     rounds each p_j to bf16 before P V, which moves p_j by at most u p_j
+#     and the output by at most u sum_j p_j |v_j| / l = u A(|v|), where
+#     A(|v|) = flash_attention_ref(q, k, |v|): derived from the arithmetic,
+#     not fitted to the data.  SDPA's flash kernel rounds P the same way.
+# A known-wrong variant, the plain version that loses the first FA_DROP keys
+# of every row, must read above the bound used, or the check could not see
+# a lost key tile.
 FA_DROP = 64
 F32_FLOPS_PER_S = 67e12    # float32 on the CUDA cores (H100 SXM)
 # ssd_scan cases: (name, BH, C, P, N).  "prefill" is mamba2-1.3b's served
@@ -435,10 +446,11 @@ def kernel_phase(seed: int):
 def attention_case(case, seed: int):
     """Hold flash_attention's kernel to its plain version in bfloat16 on
     the model's (B, S, H, D) layout viewed as (B, H, S, D); time it, the
-    plain version and scaled_dot_product_attention."""
+    plain version and scaled_dot_product_attention, and read SDPA's output
+    under the same bounds."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
+    from repro_torch.kernels.flash_attention.ref import bound_excess, flash_attention_ref
 
     name, b, hq, hkv, s, d, window = case
     dev = torch.device("cuda")
@@ -449,35 +461,48 @@ def attention_case(case, seed: int):
         x = torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
         return x.transpose(1, 2)
 
-    def excess(got, ref):
-        """max of |got - ref| / (FA_RTOL |ref| + FA_ATOL): above 1 fails."""
-        return float(((got - ref).abs() / (FA_RTOL * ref.abs() + FA_ATOL)).max())
-
     q, k, v = make(hq), make(hkv), make(hkv)
-    out = flash_attention_cuda(q, k, v, causal=True, window=window).float()
-    qf, kf, vf = q.float(), k.float(), v.float()
-    ref = flash_attention_ref(qf, kf, vf, causal=True, window=window)
-    err, ratio = float((out - ref).abs().max()), excess(out, ref)
-    cut = (slice(None), slice(None), slice(FA_DROP, None))
-    wrong = excess(flash_attention_ref(qf[cut], kf[cut], vf[cut], causal=True,
-                                       window=window), ref[cut])
-    tol = (f"|err| <= {FA_RTOL:g}|ref| + {FA_ATOL:g}: worst {ratio:.4g} of the "
-           f"bound; losing keys 0..{FA_DROP - 1} reads {wrong:.4g}")
-    if not ratio <= 1.0:
-        fail(f"flash_attention {name}: max_abs_err {err} outside {tol}")
-    if not wrong > 1.0:
-        fail(f"flash_attention {name}: the tolerance passes a wrong variant ({tol})")
-    del out, ref, qf, kf, vf
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
-                                              window=window), 5, warmup=1)
-    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True,
-                                                window=window), 2, warmup=1)
+    path = route(q, k, v)
+    if path != "tensor_core":
+        fail(f"flash_attention {name}: the serving layout took the {path} route")
     mask = None
     if window is not None:
         i = torch.arange(s, device=dev)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
-    library = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True), 5)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+
+    out = flash_attention_cuda(q, k, v, causal=True, window=window).float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref = flash_attention_ref(qf, kf, vf, causal=True, window=window)
+    abs_v = flash_attention_ref(qf, kf, vf.abs(), causal=True, window=window)
+    err, ratio = float((out - ref).abs().max()), bound_excess(out, ref, abs_v)
+    cut = (slice(None), slice(None), slice(FA_DROP, None))
+    lost = flash_attention_ref(qf[cut], kf[cut], vf[cut], causal=True, window=window)
+    wrong = bound_excess(lost, ref[cut], abs_v[cut])
+    lib = sdpa().float()
+    lib_derived, lib_cast = bound_excess(lib, ref, abs_v), bound_excess(lib, ref)
+    same = float((lib == out).float().mean())
+    tol = (f"route {path}, bound |err| <= 2^-8|ref| + 2^-8 A(|v|) + 1e-4: worst "
+           f"{ratio:.4g} of it (output-cast-only bound: "
+           f"{bound_excess(out, ref):.4g}); losing keys 0..{FA_DROP - 1} reads "
+           f"{wrong:.4g}; sdpa reads {lib_derived:.4g} (cast-only {lib_cast:.4g}) "
+           f"and equals the kernel's output at {same:.4f} of the elements")
+    if not ratio <= 1.0:
+        fail(f"flash_attention {name}: max_abs_err {err} outside the bound ({tol})")
+    if not wrong > 1.0:
+        fail(f"flash_attention {name}: the bound passes a wrong variant ({tol})")
+    del out, ref, abs_v, lost, lib, qf, kf, vf
+    before = flash_attention_cuda.tc_launches
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
+                                              window=window), 20, warmup=2)
+    if flash_attention_cuda.tc_launches - before != 22:
+        fail(f"flash_attention {name}: timed launches left the tensor-core route")
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                window=window), 2, warmup=1)
+    library = cuda_ms(sdpa, 20, warmup=2)
     # the visible (query, key) pairs of this mask, two products of D each
     w = s if window is None else window
     pairs = sum(min(p + 1, w) for p in range(s))
@@ -489,11 +514,31 @@ def attention_case(case, seed: int):
     print(f"flash_attention[{name}]: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
           f"window={window} bf16 causal max_abs_err={err:.6g} ({tol}); "
           f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms(sdpa)={library:.6f} "
-          f"flops={flops} bytes={nbytes} bound_ms={bnd:.6f} ({by})", flush=True)
+          f"flops={flops} bytes={nbytes} bound_ms={bnd:.6f} ({by}) "
+          f"tflops={flops / ms / 1e9:.1f}", flush=True)
     del q, k, v, mask
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bnd,
                 bound_by=by, max_abs_err=err)
+
+
+def flash_attention_build_checks(build) -> None:
+    """The built flash_attention library: ptxas reports no spills for
+    either kernel, and the tensor-core kernel's SASS holds wgmma (HGMMA)
+    and TMA loads (UTMALDG)."""
+    import re
+
+    report = build.ptxas_report("flash_attention")
+    spills = [m.group(0) for m in re.finditer(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+        if m.group(1) != "0" or m.group(2) != "0"]
+    if spills or "spill" not in report:
+        fail(f"flash_attention: ptxas reports spills (or no report): {spills}")
+    ops = build.sass_opcode_counts(build.sass("flash_attention"), "fa_forward_tc",
+                                   ("HGMMA", "UTMALDG"))
+    print(f"sass[flash_attention, fa_forward_tc]: {json.dumps(ops)}", flush=True)
+    if not all(ops.values()):
+        fail(f"flash_attention: the tensor-core kernel's SASS lacks {ops}")
 
 
 def ssd_scan_case(case, seed: int):
@@ -659,9 +704,13 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str) -> in
     ])
     torch.cuda.reset_peak_memory_stats()
     wrapper.launches = 0
+    routed = hasattr(wrapper, "tc_launches")  # flash_attention: two routes
+    if routed:
+        wrapper.tc_launches = 0
     t0 = time.perf_counter()
     out = serve.run(args)
     launches = wrapper.launches
+    tc_launches = wrapper.tc_launches if routed else None
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     runs = out["runs"]
@@ -675,6 +724,9 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str) -> in
     if launches != want:
         fail(f"{arch} serving: {launches} {name} launches, want {want} "
              f"(one per layer per prefill, none in decode)")
+    if routed and tc_launches != want:
+        fail(f"{arch} serving: {tc_launches} of {launches} {name} launches on "
+             f"the tensor-core route, want all")
     for i, r in enumerate(runs):
         print(f"lm_serving[{arch}] run {i}: B={out['batch']} prompt tokens "
               f"{out['prompt_tokens']}; prefill_ms={r['prefill_ms']:.3f} "
@@ -684,8 +736,9 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str) -> in
           f"{out['init_s']:.1f} s, weight_bytes={out['weight_bytes']} "
           f"cache_bytes={out['kv_cache_bytes']} (summed over the cache prefill "
           f"allocated) peak_allocated={peak} (this phase); {name} launches "
-          f"{launches} ({launches // 2} per prefill); tokens identical over 2 "
-          f"runs; {secs:.1f} s", flush=True)
+          f"{launches} ({launches // 2} per prefill"
+          f"{f', {tc_launches} on the tensor-core route' if routed else ''}); "
+          f"tokens identical over 2 runs; {secs:.1f} s", flush=True)
     profile_generate(out.pop("engine"), prompts, card, arch)
     del out
     torch.cuda.empty_cache()
@@ -792,8 +845,9 @@ def main() -> None:
     print(f"build: {len(build.SOURCES)} sources in {secs:.1f} s", flush=True)
     for name in build.SOURCES:
         for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas[{name}]: {line.strip()}", flush=True)
+    flash_attention_build_checks(build)
 
     t0 = time.perf_counter()
     probe, hm = kernel_phase(args.seed)

@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``lib<name>.so`` under ``src/repro_torch/_build/<hash>/``, where the
-hash covers the source and the compiler flags, so an edited source builds
-afresh and an unchanged one is reused.  The build directory is git-ignored
+hash covers the source, every header under ``csrc/`` and the compiler
+flags, so an edited source or header builds afresh and an unchanged one is
+reused.  The build directory is git-ignored
 and filled at first use: the first wrapper call, or :func:`build` (which
 ``chip_smoke.py`` calls to build every source at once, one ``nvcc`` per
 source, all started together).
@@ -26,6 +27,7 @@ from typing import Dict, Sequence
 
 __all__ = [
     "SOURCES", "NVCC_FLAGS", "build", "count_launch", "load", "ptxas_report",
+    "sass", "sass_opcode_counts",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -61,8 +63,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
@@ -114,15 +118,58 @@ def ptxas_report(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``.
+def count_launch(wrapper, counter: str = "launches") -> None:
+    """Add one to ``wrapper.launches`` (or another counter of it).
 
     The service launches kernels from many threads at once (the router's
     scatter pool, the batchers' leaders), and ``+= 1`` on an attribute is
     not atomic, so every wrapper counts through this lock.
     """
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+
+
+def _cuobjdump() -> str:
+    """``cuobjdump`` beside the ``nvcc`` that builds, else the copy that
+    Triton's package carries (``triton/backends/nvidia/bin``)."""
+    beside = Path(_nvcc()).parent / "cuobjdump"
+    if beside.exists():
+        return str(beside)
+    import importlib.util
+
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        bundled = Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if bundled.exists():
+            return str(bundled)
+    raise RuntimeError("cuobjdump not found beside nvcc nor in the triton package")
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of ``lib<name>.so``, built first if needed."""
+    build([name])
+    return subprocess.run([_cuobjdump(), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_opcode_counts(text: str, function: str, opcodes: Sequence[str]) -> Dict[str, int]:
+    """How often each of ``opcodes`` starts an instruction in the SASS
+    functions of ``text`` whose (mangled) name contains ``function``."""
+    counts = {op: 0 for op in opcodes}
+    inside = False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = function in line
+            continue
+        if not inside or "*/" not in line:
+            continue
+        instr = line.split("*/", 1)[1].strip()
+        if instr.startswith("@"):  # a predicated instruction
+            instr = instr.split(None, 1)[1] if " " in instr else ""
+        for op in opcodes:
+            if instr.startswith(op):
+                counts[op] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,7 +19,7 @@ D)`` against ``k, v (B, Hkv, Skv, D)`` → ``(B, Hq, Sq, D)`` in q's dtype.
 Queries are taken in row blocks so that the ``(B, Hq, rows, Skv)`` score
 block stays under ``_SCORE_ELEMS`` elements.  Runs on any device; the CPU
 tests and the CPU model path use it, and on the card it is the yardstick
-that the CUDA kernel is held to.
+that the CUDA kernel is held to, through :func:`bound_excess`.
 """
 
 from __future__ import annotations
@@ -28,9 +28,12 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "check_shapes", "flash_attention_ref"]
+__all__ = ["BF16_U", "BOUND_ATOL", "NEG_INF", "bound_excess", "check_shapes",
+           "flash_attention_ref"]
 
 NEG_INF = -1e30
+BF16_U = 2.0 ** -8   # bfloat16's unit roundoff (8 significant bits)
+BOUND_ATOL = 1e-4    # float32 arithmetic (the f32 card tests agree in 2e-5)
 _SCORE_ELEMS = 1 << 28  # float32 scores per row block (1 GiB)
 
 
@@ -91,3 +94,25 @@ def flash_attention_ref(
         o = o.reshape(b, hkv, g, n, d) / torch.where(den > 0, den, 1.0)
         out[:, :, lo:hi] = o.reshape(b, hq, n, d)
     return out.to(q.dtype)
+
+
+def bound_excess(
+    got: torch.Tensor,
+    ref: torch.Tensor,
+    abs_v_ref: Optional[torch.Tensor] = None,
+) -> float:
+    """Worst ``|got - ref| / (u |ref| + u A + atol)`` over all elements:
+    above 1 is outside the bound.
+
+    ``ref`` is this module's float32 output on the same values; ``u`` is
+    :data:`BF16_U`, ``atol`` :data:`BOUND_ATOL`.  Without ``abs_v_ref``
+    (``A`` = 0) the bound allows the bf16 output cast only.  With
+    ``abs_v_ref`` = ``flash_attention_ref(q, k, v.abs())`` it also allows a
+    kernel that rounds P to bf16 before the P·V product (the tensor-core
+    route): each ``p_j`` moves by at most ``u p_j``, so the output moves by
+    at most ``u sum_j p_j |v_j| / l = u A``.
+    """
+    allow = BF16_U * ref.abs() + BOUND_ATOL
+    if abs_v_ref is not None:
+        allow = allow + BF16_U * abs_v_ref
+    return float(((got.float() - ref).abs() / allow).max())

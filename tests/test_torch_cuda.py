@@ -153,34 +153,112 @@ FA_CARD_CASES = [
 ]
 
 
+def _fa_inputs(cuda, dt, b, hq, hkv, sq, skv, d, seed=None):
+    """q, k, v ~ N(0, 1) in the model's layout: (B, S, H, D) on the card,
+    viewed as (B, H, S, D), not contiguous."""
+    rng = np.random.default_rng(b + hq + sq + skv + d if seed is None else seed)
+    q = torch.from_numpy(rng.standard_normal((b, sq, hq, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, skv, hkv, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, skv, hkv, d), np.float32))
+    return tuple(t.to(cuda, dt).transpose(1, 2) for t in (q, k, v))
+
+
+def _fa_check(q, k, v, causal, window, want_route):
+    """One launch of the kernel against the plain version on the same
+    values in float32.  float32 (CUDA-core route): within 2e-5 (the same
+    float32 math summed in another order).  bf16 on the CUDA-core route:
+    within the output cast's rounding, 2^-8 |ref| + 1e-4.  bf16 on the
+    tensor-core route: the kernel also rounds P to bf16 before P V; each
+    p_j then moves by at most 2^-8 p_j, so the output moves by at most
+    2^-8 sum_j p_j |v_j| / l = 2^-8 A(|v|), A(|v|) being the plain
+    version's output for |v|; the bound is 2^-8 |ref| + 2^-8 A(|v|) + 1e-4
+    (``bound_excess``), and a kernel that loses a key tile reads hundreds
+    of times above it (tests/test_torch_attention_route.py)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
+    from repro_torch.kernels.flash_attention.ref import bound_excess, flash_attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
+    assert route(q, k, v) == want_route
+    before = (flash_attention_cuda.launches, flash_attention_cuda.tc_launches)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                               window=window)
+    torch.cuda.synchronize()
+    tc = int(want_route == "tensor_core")
+    assert (flash_attention_cuda.launches, flash_attention_cuda.tc_launches) == (
+        before[0] + 1, before[1] + tc)
+    assert got.dtype == q.dtype and got.shape == want.shape
+    if q.dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=2e-5, rtol=2e-5)
+    elif tc:
+        abs_v = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                    causal=causal, window=window)
+        assert bound_excess(got, want, abs_v) <= 1.0
+    else:
+        assert bound_excess(got, want) <= 1.0
+    return got
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FA_CARD_CASES)
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, sq, skv,
                                               d, causal, window):
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
     dt = getattr(torch, dtype)
-    rng = np.random.default_rng(b + hq + sq + skv + d)
-    q = torch.from_numpy(rng.standard_normal((b, sq, hq, d), np.float32))
-    k = torch.from_numpy(rng.standard_normal((b, skv, hkv, d), np.float32))
-    v = torch.from_numpy(rng.standard_normal((b, skv, hkv, d), np.float32))
-    # the model's layout: (B, S, H, D) viewed as (B, H, S, D), not contiguous
-    q, k, v = (t.to(cuda, dt).transpose(1, 2) for t in (q, k, v))
-    before = flash_attention_cuda.launches
-    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
-    # the plain version on the same values in float32, before any cast: a
-    # bfloat16 output may be off by its rounding, half a step (2^-8 |x|),
-    # plus float32 arithmetic (the f32 cases agree within 2e-5)
-    want = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                               window=window)
-    torch.cuda.synchronize()
-    assert flash_attention_cuda.launches == before + 1
-    assert got.dtype == dt and got.shape == (b, hq, sq, d)
-    tol = dict(atol=2e-5, rtol=2e-5) if dt == torch.float32 else dict(atol=1e-4, rtol=2.0 ** -8)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **tol)
+    q, k, v = _fa_inputs(cuda, dt, b, hq, hkv, sq, skv, d)
+    # every bf16 case is a view TMA reads: the tensor-core route
+    _fa_check(q, k, v, causal, window,
+              "cuda_core" if dt == torch.float32 else "tensor_core")
+
+
+@pytest.mark.parametrize("case", ["d20", "seq_stride_136_bytes"])
+def test_flash_attention_bf16_cuda_core_route(cuda, case):
+    """bf16 inputs that TMA cannot read take the CUDA-core kernel."""
+    if case == "d20":
+        q, k, v = _fa_inputs(cuda, torch.bfloat16, 1, 4, 2, 150, 150, 20)
+    else:  # (B, S, 1, 68) sliced to D = 64: sequence stride 136 bytes
+        x = torch.randn((1, 200, 1, 68), device=cuda).to(torch.bfloat16)
+        q = k = v = x[..., :64].transpose(1, 2)
+    _fa_check(q, k, v, True, None, "cuda_core")
+
+
+# (B, Hq, Hkv, S, D, window): one or two heads in the serving layout at
+# each tensor-core tile shape, prompts that end inside a tile
+FA_SERVING_CASES = [
+    (1, 2, 1, 1000, 64, None),
+    (2, 1, 1, 777, 128, None),
+    (1, 2, 2, 2048, 128, None),
+    (1, 2, 1, 1500, 256, 1024),
+    (1, 1, 1, 600, 256, None),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", FA_SERVING_CASES)
+def test_flash_attention_tensor_core_serving_layouts(cuda, b, hq, hkv, s, d, window):
+    q, k, v = _fa_inputs(cuda, torch.bfloat16, b, hq, hkv, s, s, d)
+    _fa_check(q, k, v, True, window, "tensor_core")
+
+
+def test_flash_attention_tensor_core_is_deterministic(cuda):
+    """No split over keys and no atomics: two launches, the same bits."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    q, k, v = _fa_inputs(cuda, torch.bfloat16, 2, 8, 2, 1000, 1000, 128)
+    first = flash_attention_cuda(q, k, v, causal=True)
+    second = flash_attention_cuda(q, k, v, causal=True)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_flash_attention_sass_has_tensor_core_and_tma_instructions(cuda):
+    """The built tensor-core kernel issues wgmma (HGMMA) and TMA loads
+    (UTMALDG); the CUDA-core kernel issues neither."""
+    from repro_torch.kernels import build
+
+    text = build.sass("flash_attention")
+    tc = build.sass_opcode_counts(text, "fa_forward_tc", ("HGMMA", "UTMALDG"))
+    assert tc["HGMMA"] > 0 and tc["UTMALDG"] > 0, tc
+    plain = build.sass_opcode_counts(text, "fa_forwardI", ("HGMMA", "UTMALDG"))
+    assert plain == {"HGMMA": 0, "UTMALDG": 0}, plain
 
 
 def test_lm_smoke_prefill_on_the_card_matches_the_cpu(cuda):
