@@ -8,9 +8,16 @@
    paper's scale: ``sorted_probe`` over a sorted 176,929,690-entry digest
    plane (PubChem's count) with 477,123 queries (ChEMBL ∩ eMolecules), of
    which 435,413 (the extracted count) are drawn from the plane, plus a
-   24-bit table with duplicate runs; ``hash_mix`` over the 1,048,576 x 128
-   verify batch that ``compare_ids_batch`` forms for 435,413 pairs.  Outputs
-   must match bit for bit.  ``tanimoto`` top-k against its plain version,
+   24-bit table with duplicate runs, each timed warm and cold (L2 flushed
+   before each launch) with ``torch.searchsorted`` beside it the same two
+   ways, and a serving request's shape (32 keys in a 100,000-entry plane),
+   timed on the device with the calls queued behind a sleep (so the host's
+   enqueue time is hidden), cold, and on the host per call; ``hash_mix`` over
+   the 1,048,576 x 128 verify batch that ``compare_ids_batch`` forms for
+   435,413 pairs, the same rows at 32 and 64 lanes, the funnel's largest
+   verify batch (4,096 x 128) and a slice 4 bytes off 16-byte alignment,
+   each on its route, warm and cold.  Outputs must match bit for bit.
+   ``tanimoto`` top-k against its plain version,
    scores as raw float32 bits and rows exactly: ``pubchem``, a plane of
    176,929,690 random 1,024-bit fingerprints (22.6 GB, generated on the
    card in chunks) screened by 64 queries at k = 32; ``ties``, 4,194,304
@@ -27,9 +34,11 @@
    a bound that a variant losing one key tile must exceed, with
    ``torch.nn.functional.scaled_dot_product_attention`` timed beside it
    and its output read under the same bound and the output-cast-only one.
-   After the build, ``cuobjdump -sass`` of the built library must show
-   ``HGMMA`` and ``UTMALDG`` in the tensor-core kernel, and ptxas no spills
-   in either kernel of ``flash_attention.cu``.
+   After the build, ptxas must report no spills in ``flash_attention.cu``,
+   ``sorted_probe.cu`` and ``hash_mix.cu``, and ``cuobjdump -sass`` must
+   show each redesigned kernel's instruction (``DESIGN_OPCODES``):
+   ``HGMMA`` and ``UTMALDG`` in the tensor-core attention kernel,
+   ``LDGSTS`` (``cp.async``) in the staged kernel of ``hash_mix``.
    Prints each kernel's time, the plain version's, a PyTorch library
    call's where one computes the same function, and the least time the
    card could take (its bound).  ``ssd_scan`` against its plain version,
@@ -42,8 +51,11 @@
    (corpus, index, publish, intersect, lookup_batch, extract + verify) at
    100,000 records, plus an extraction through 17-bit hashed keys whose
    collisions the device verifier must reject as the string verifier does,
-   with every kernel's launch count set to 0 just before
-   and read just after: each kernel must have launched on that path.
+   with every kernel's launch counts (in all, and per route) set to 0 just
+   before and read just after: each kernel must have launched on that path.
+   The 17-bit phase's mismatch count must equal ``HASHED_MISMATCHES`` and
+   the count through an index built by one process on the same corpus,
+   whose entries the pool build's must equal.
 4. The query service on the funnel's corpus and store through
    ``repro_torch.launch.serve_index`` on the card (2 replicas, 8 clients,
    2 s per arm): lookup mode with its ``svc.fetch == serial extract``
@@ -112,14 +124,23 @@ sys.path.insert(0, str(SRC))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 
+L2_FLUSH_BYTES = 256 << 20  # written between cold launches: 5x the H100's 50 MB L2
 PUBCHEM = 176_929_690      # table entries (the paper's PubChem count)
 QUERIES = 477_123          # ChEMBL ∩ eMolecules
 FROM_PLANE = 435_413       # of which present in PubChem (the extracted count)
 DUP_TABLE = 1 << 22        # the duplicate-run case: 24-bit digests
 VERIFY_ROWS = 1 << 20      # 2 x 435,413 rows bucketed to a power of two
 VERIFY_LANES = 128         # 112 lanes (431-byte ids) bucketed
+FUNNEL_VERIFY_ROWS = 4096  # the funnel's largest verify batch at 100,000 records
+SERVE_PLANE = 100_000      # serving-shaped probe: the funnel store's plane ...
+SERVE_KEYS = 32            # ... and a few dozen keys of a coalesced request
+SLEEP_CYCLES = 20_000_000  # about 10 ms at 1.98 GHz: longer than a timed enqueue
+HOST_CALLS = 10_000        # calls timed on the host's clock
 HASH_OPS_PER_LANE = 19     # integer ops per (row, lane) in hash_mix's loop
 FUNNEL_RECORDS = 100_000   # 8 files x 12,500 records, about 207 MB of SDF
+# mismatches the funnel's 17-bit hashed-key phase rejects at seed 0: the
+# count of a workers=1 index (the merge no longer depends on worker order)
+HASHED_MISMATCHES = 405
 FP_WORDS = 32              # 1,024-bit fingerprints (the store's default)
 SIM_QUERIES = 64           # pubchem case: a service batch of queries
 SIM_K = 32                 # the service's similar_top_k
@@ -188,6 +209,52 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_ms(fn, reps: int, flush: torch.Tensor, warmup: int = 1) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls, each timed
+    alone (CUDA events) after ``flush`` (a buffer larger than the card's
+    L2) is written, so that every call finds L2 cold."""
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for i in range(reps):
+        flush.fill_(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls queued behind a
+    sleep, so that the host's time to enqueue them is hidden."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, calls: int) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
@@ -245,36 +312,85 @@ def search_sectors(keys: torch.Tensor, qk: torch.Tensor) -> int:
     return int(torch.unique(torch.cat(touched) // 4).numel())
 
 
-def probe_case(name, keys, qk, reps, note):
-    """Hold sorted_probe's kernel to its plain version on one table."""
+def probe_case(name, keys, qk, reps, note, flush, serving=False):
+    """Hold sorted_probe's kernel to its plain version on one table; time it
+    and ``torch.searchsorted`` warm (or, for a serving request, queued
+    behind a sleep, and on the host) and cold (L2 flushed before each
+    launch)."""
     from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
     from repro_torch.kernels.sorted_probe.ref import sorted_probe_ref
 
     table = keys_to_pairs(keys)
     queries = keys_to_pairs(qk)
+    q, m = qk.numel(), keys.numel()
+    before = sorted_probe_cuda.launches
     f_k, p_k = sorted_probe_cuda(queries, table)
     f_r, p_r = sorted_probe_ref(queries, table)
     torch.cuda.synchronize()
+    if sorted_probe_cuda.launches != before + 1:
+        fail(f"sorted_probe {name}: the call did not count one launch")
     if not (torch.equal(f_k, f_r) and torch.equal(p_k, p_r)):
         bad = int((f_k != f_r).sum() + (p_k != p_r).sum())
         fail(f"sorted_probe {name}: kernel disagrees with plain version ({bad} outputs)")
     err = int((p_k.to(torch.int64) - p_r.to(torch.int64)).abs().max())
     err = max(err, int((f_k != f_r).sum()))
-    ms = cuda_ms(lambda: sorted_probe_cuda(queries, table), reps)
+    kernel = lambda: sorted_probe_cuda(queries, table)  # noqa: E731
+    library = lambda: torch.searchsorted(keys, qk)  # noqa: E731
+    warm = queued_ms if serving else cuda_ms
+    ms = warm(kernel, reps)
+    cold = cold_ms(kernel, 20, flush)
     plain = cuda_ms(lambda: sorted_probe_ref(queries, table), 3, warmup=1)
-    library = cuda_ms(lambda: torch.searchsorted(keys, qk), reps)
+    lib_ms = warm(library, reps)
+    lib_cold = cold_ms(library, 20, flush)
+    host = (f" host_us={host_us(kernel, HOST_CALLS):.3f} "
+            f"library_host_us={host_us(library, HOST_CALLS):.3f}") if serving else ""
     sectors = search_sectors(keys, qk)
-    q = qk.numel()
     nbytes = sectors * 32 + q * 8 + q * (1 + 4)
-    steps = max(1, (keys.numel() - 1).bit_length()) + 1
+    steps = max(1, (m - 1).bit_length()) + 1
     b, by = bound_ms(nbytes, q * steps * 3)
     hits = int(f_k.sum())
-    print(f"sorted_probe[{name}]: M={keys.numel()} Q={q} hits={hits} {note} "
-          f"bit-exact; kernel_ms={ms:.6f} plain_ms={plain:.6f} "
-          f"library_ms(searchsorted)={library:.6f} sectors={sectors} "
-          f"bytes={nbytes} bound_ms={b:.6f} ({by})", flush=True)
+    how = "queued" if serving else "warm"
+    print(f"sorted_probe[{name}]: M={m} Q={q} hits={hits} {note} "
+          f"bit-exact; kernel_ms={ms:.6f} ({how}) kernel_cold_ms={cold:.6f} "
+          f"plain_ms={plain:.6f} library_ms(searchsorted)={lib_ms:.6f} ({how}) "
+          f"library_cold_ms={lib_cold:.6f}{host} sectors={sectors} bytes={nbytes} "
+          f"bound_ms={b:.6f} ({by})", flush=True)
     del table, queries
-    return dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=b,
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b,
+                bound_by=by, max_abs_err=err)
+
+
+def hash_case(name, x, reps, flush):
+    """Hold hash_mix's kernel to its plain version bit for bit on ``x``, on
+    the route the wrapper picks; time it warm and cold."""
+    from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda, route
+    from repro_torch.kernels.hash_mix.ref import hash_mix_ref
+
+    n, w = x.shape
+    path = route(w, x.data_ptr())
+    on_route = getattr(hash_mix_cuda, f"{path}_launches")
+    out_k = hash_mix_cuda(x)
+    out_r = hash_mix_ref(x)
+    torch.cuda.synchronize()
+    if getattr(hash_mix_cuda, f"{path}_launches") != on_route + 1:
+        fail(f"hash_mix {name}: the launch left the {path} route")
+    a = out_k.view(torch.int32).to(torch.int64) & M32
+    b = out_r.view(torch.int32).to(torch.int64) & M32
+    err = int((a - b).abs().max())
+    if err != 0:
+        fail(f"hash_mix {name}: kernel disagrees with plain version (max_abs_err {err})")
+    ms = cuda_ms(lambda: hash_mix_cuda(x), reps)
+    cold = cold_ms(lambda: hash_mix_cuda(x), 20, flush)
+    plain = cuda_ms(lambda: hash_mix_ref(x), 2, warmup=1)
+    nbytes = n * w * 4 + n * 16
+    ops = n * w * HASH_OPS_PER_LANE
+    bnd, by = bound_ms(nbytes, ops)
+    print(f"hash_mix[{name}]: N={n} W={w} route={path} bit-exact; "
+          f"kernel_ms={ms:.6f} (warm) kernel_cold_ms={cold:.6f} "
+          f"plain_ms={plain:.6f} library_ms=null bytes={nbytes} ops={ops} "
+          f"bound_ms={bnd:.6f} ({by}) share_of_bound={bnd / ms:.3f}", flush=True)
+    del out_k, out_r, a, b
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
                 bound_by=by, max_abs_err=err)
 
 
@@ -384,12 +500,10 @@ def tanimoto_phase(seed: int):
 
 
 def kernel_phase(seed: int):
-    from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
-    from repro_torch.kernels.hash_mix.ref import hash_mix_ref, to_u32
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
 
     def rand_keys(n, bits=32):
         halves = torch.randint(0, 2**bits, (n, 2), generator=g, device=dev,
@@ -401,7 +515,8 @@ def kernel_phase(seed: int):
     pick = torch.randint(0, PUBCHEM, (FROM_PLANE,), generator=g, device=dev)
     qk = torch.cat([keys[pick], rand_keys(QUERIES - FROM_PLANE)])
     qk = qk[torch.randperm(QUERIES, generator=g, device=dev)]
-    main = probe_case("pubchem", keys, qk, reps=50, note="(1.42 GB plane)")
+    main = probe_case("pubchem", keys, qk, reps=50, note="(1.42 GB plane)",
+                      flush=flush)
     del keys, pick, qk
 
     # -- sorted_probe on 24-bit digests: duplicate runs -----------------------
@@ -414,31 +529,32 @@ def kernel_phase(seed: int):
     miss = torch.randint(0, 1 << 24, (QUERIES - FROM_PLANE,), generator=g,
                          device=dev) ^ SIGN
     qk = torch.cat([keys[pick], miss])
-    probe_case("dup24", keys, qk, reps=50, note=f"({runs} duplicate entries)")
+    probe_case("dup24", keys, qk, reps=50, note=f"({runs} duplicate entries)",
+               flush=flush)
     del keys, narrow, pick, miss, qk
 
-    # -- hash_mix on the verify batch -----------------------------------------
-    x = to_u32(torch.randint(0, 2**32, (VERIFY_ROWS, VERIFY_LANES), generator=g,
-                             device=dev, dtype=torch.int64)).contiguous()
-    out_k = hash_mix_cuda(x)
-    out_r = hash_mix_ref(x)
-    torch.cuda.synchronize()
-    a = out_k.view(torch.int32).to(torch.int64) & M32
-    b = out_r.view(torch.int32).to(torch.int64) & M32
-    err = int((a - b).abs().max())
-    if err != 0:
-        fail(f"hash_mix kernel disagrees with plain version (max_abs_err {err})")
-    ms = cuda_ms(lambda: hash_mix_cuda(x), 20)
-    plain = cuda_ms(lambda: hash_mix_ref(x), 2, warmup=1)
-    nbytes = VERIFY_ROWS * VERIFY_LANES * 4 + VERIFY_ROWS * 16
-    ops = VERIFY_ROWS * VERIFY_LANES * HASH_OPS_PER_LANE
-    bnd, by = bound_ms(nbytes, ops)
-    print(f"hash_mix: N={VERIFY_ROWS} W={VERIFY_LANES} bit-exact; "
-          f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms=null "
-          f"bytes={nbytes} ops={ops} bound_ms={bnd:.6f} ({by})", flush=True)
-    hm = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-              bound_by=by, max_abs_err=err)
-    del x, out_k, out_r, a, b
+    # -- sorted_probe at a serving request's shape ----------------------------
+    keys = torch.sort(rand_keys(SERVE_PLANE)).values
+    pick = torch.randint(0, SERVE_PLANE, (SERVE_KEYS - SERVE_KEYS // 4,),
+                         generator=g, device=dev)
+    qk = torch.cat([keys[pick], rand_keys(SERVE_KEYS // 4)])
+    probe_case("serving", keys, qk, reps=200, note="(a request's keys)", flush=flush,
+               serving=True)
+    del keys, pick, qk
+
+    # -- hash_mix: the verify batch, the other widths, the funnel's batch,
+    # and a slice 4 bytes off 16-byte alignment ------------------------------
+    hm = hash_case("verify", random_u32(g, (VERIFY_ROWS, VERIFY_LANES), dev), 20, flush)
+    for name, shape, reps in (("W=32", (VERIFY_ROWS, 32), 20),
+                              ("W=64", (VERIFY_ROWS, 64), 20),
+                              ("funnel", (FUNNEL_VERIFY_ROWS, VERIFY_LANES), 200)):
+        err = hash_case(name, random_u32(g, shape, dev), reps, flush)["max_abs_err"]
+        hm["max_abs_err"] = max(hm["max_abs_err"], err)
+    flat = random_u32(g, (VERIFY_ROWS * VERIFY_LANES + 1,), dev)
+    err = hash_case("unaligned", flat[1:].view(VERIFY_ROWS, VERIFY_LANES), 20,
+                    flush)["max_abs_err"]
+    hm["max_abs_err"] = max(hm["max_abs_err"], err)
+    del flat, flush
     torch.cuda.empty_cache()
     return main, hm
 
@@ -522,23 +638,34 @@ def attention_case(case, seed: int):
                 bound_by=by, max_abs_err=err)
 
 
-def flash_attention_build_checks(build) -> None:
-    """The built flash_attention library: ptxas reports no spills for
-    either kernel, and the tensor-core kernel's SASS holds wgmma (HGMMA)
-    and TMA loads (UTMALDG)."""
+# sources whose kernels must not spill, and what each redesigned kernel's
+# SASS must hold: (source, kernel, opcodes)
+NO_SPILL_SOURCES = ("flash_attention", "sorted_probe", "hash_mix")
+DESIGN_OPCODES = (
+    ("flash_attention", "fa_forward_tc", ("HGMMA", "UTMALDG")),  # wgmma, TMA
+    ("hash_mix", "hash_mix_staged_kernel", ("LDGSTS",)),         # cp.async
+)
+
+
+def build_checks(build) -> None:
+    """The built libraries: ptxas reports no spills in any kernel of
+    ``NO_SPILL_SOURCES``, and each redesigned kernel's instruction is in
+    its SASS (``DESIGN_OPCODES``)."""
     import re
 
-    report = build.ptxas_report("flash_attention")
-    spills = [m.group(0) for m in re.finditer(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
-        if m.group(1) != "0" or m.group(2) != "0"]
-    if spills or "spill" not in report:
-        fail(f"flash_attention: ptxas reports spills (or no report): {spills}")
-    ops = build.sass_opcode_counts(build.sass("flash_attention"), "fa_forward_tc",
-                                   ("HGMMA", "UTMALDG"))
-    print(f"sass[flash_attention, fa_forward_tc]: {json.dumps(ops)}", flush=True)
-    if not all(ops.values()):
-        fail(f"flash_attention: the tensor-core kernel's SASS lacks {ops}")
+    for source in NO_SPILL_SOURCES:
+        report = build.ptxas_report(source)
+        spills = [m.group(0) for m in re.finditer(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+            if m.group(1) != "0" or m.group(2) != "0"]
+        if spills or "spill" not in report:
+            fail(f"{source}: ptxas reports spills (or no report): {spills}")
+        print(f"ptxas[{source}]: no spills", flush=True)
+    for source, kernel, opcodes in DESIGN_OPCODES:
+        ops = build.sass_opcode_counts(build.sass(source), kernel, opcodes)
+        print(f"sass[{source}, {kernel}]: {json.dumps(ops)}", flush=True)
+        if not all(ops.values()):
+            fail(f"{source}: the SASS of {kernel} lacks {ops}")
 
 
 def ssd_scan_case(case, seed: int):
@@ -782,21 +909,70 @@ def profile_generate(engine, prompts, card: str, arch: str) -> None:
               f"({len(inside)} device events); top: {top}; card: {card}", flush=True)
 
 
+def reset_launches(wrappers) -> None:
+    """Set every launch count of ``wrappers`` (the total and each route's)
+    to 0."""
+    for fn in wrappers:
+        for attr in list(vars(fn)):
+            if attr.endswith("launches"):
+                setattr(fn, attr, 0)
+
+
+def route_launches(wrappers) -> dict:
+    """``{name: {"launches": total, "<route>_launches": n, ...}}``."""
+    return {name: {attr: getattr(fn, attr) for attr in sorted(vars(fn))
+                   if attr.endswith("launches")}
+            for name, fn in wrappers.items()}
+
+
+def hashed_phase_check(work: Path, summary: dict, seed: int) -> None:
+    """The funnel's hashed-key phase is deterministic: its mismatch count
+    must equal ``HASHED_MISMATCHES`` (seed 0) and the count through an
+    index built by one process on the same corpus, whose entries the
+    funnel's pool build (``workers=4``) must equal."""
+    from repro_torch.core import (
+        IndexStore, RecordStore, build_index, extract, intersect_host)
+    from repro_torch.core.sdfgen import db_id_list
+    from repro_torch.launch.funnel import SHARDS, funnel_spec
+
+    bits = summary["hashed_key_bits"]
+    store = RecordStore(work / "corpus")
+    one = build_index(store, key_mode="hashed_key", key_bits=bits,
+                      recompute_keys=True, workers=1)
+    pool = build_index(store, key_mode="hashed_key", key_bits=bits,
+                       recompute_keys=True, workers=4)
+    if list(one.entries.items()) != list(pool.entries.items()):
+        fail("hashed-key index: workers=4 differs from workers=1")
+    one.save_sharded(work / "hashed_one", n_shards=SHARDS)
+    spec = funnel_spec(FUNNEL_RECORDS, seed)
+    ids = intersect_host(db_id_list(spec, "chembl", extra_outside=30),
+                         db_id_list(spec, "emolecules", extra_outside=30)).ids
+    res = extract(store, IndexStore.open(work / "hashed_one", device="cuda"), ids,
+                  key_bits=bits, device="cuda")
+    got, one_count = summary["hashed_mismatches"], len(res.mismatches)
+    pinned = HASHED_MISMATCHES if seed == 0 else None
+    print(f"funnel {bits}-bit phase: {got} mismatches; workers=1 index on the "
+          f"same corpus: {one_count}; pinned (seed 0): {pinned}", flush=True)
+    if got != one_count or (pinned is not None and got != pinned):
+        fail(f"{bits}-bit phase: {got} mismatches, workers=1 gives {one_count}, "
+             f"pinned {pinned}")
+
+
 def serving_phase(serve_index, work: Path, wrappers, card: str):
     """The query service on the funnel's corpus and store, lookup mode then
     similarity mode; returns each kernel's launches over the phase."""
     common = ["--store", str(work / "store"), "--corpus", str(work / "corpus"),
               "--device", "cuda", "--replicas", "2", "--clients", "8",
               "--seconds", "2"]
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches(wrappers.values())
     t0 = time.perf_counter()
     look = serve_index.run(serve_index.build_parser().parse_args(common))
     sim = serve_index.run(serve_index.build_parser().parse_args(
         common + ["--similarity", "--similar-k", "8"]))
-    launches = {n: fn.launches for n, fn in wrappers.items()}
+    counts = route_launches(wrappers)
+    launches = {n: c["launches"] for n, c in counts.items()}
     print(f"serving phase: {time.perf_counter() - t0:.1f} s; launches "
-          f"{json.dumps(launches)}", flush=True)
+          f"{json.dumps(counts)}", flush=True)
     for mode, out in (("lookup", look), ("similarity", sim)):
         if not out.get("parity"):
             fail(f"serve_index {mode} mode ran no parity gate")
@@ -845,9 +1021,10 @@ def main() -> None:
     print(f"build: {len(build.SOURCES)} sources in {secs:.1f} s", flush=True)
     for name in build.SOURCES:
         for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "smem" in line):
                 print(f"  ptxas[{name}]: {line.strip()}", flush=True)
-    flash_attention_build_checks(build)
+    build_checks(build)
 
     t0 = time.perf_counter()
     probe, hm = kernel_phase(args.seed)
@@ -861,18 +1038,18 @@ def main() -> None:
     wrappers = {"sorted_probe": sorted_probe_cuda, "hash_mix": hash_mix_cuda,
                 "tanimoto": tanimoto_topk_cuda}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_launches(wrappers.values())
         summary = run_funnel(FUNNEL_RECORDS, seed=args.seed, device="cuda",
                              log=lambda s: print(f"funnel: {s}", flush=True),
                              workdir=work)
-        funnel_launches = {n: wrappers[n].launches
-                           for n in ("sorted_probe", "hash_mix")}
+        funnel_launches = route_launches(
+            {n: wrappers[n] for n in ("sorted_probe", "hash_mix")})
         print(f"funnel summary: {json.dumps(summary)}", flush=True)
-        for name, n in funnel_launches.items():
-            if n == 0:
+        for name, counts in funnel_launches.items():
+            if counts["launches"] == 0:
                 fail(f"{name} was not launched on the funnel's path")
         print(f"funnel launches: {json.dumps(funnel_launches)}", flush=True)
+        hashed_phase_check(Path(work), summary, args.seed)
 
         launches = serving_phase(serve_index, Path(work), wrappers, card)
         t0 = time.perf_counter()

@@ -328,7 +328,10 @@ def build_index(
     """Phase 1: full corpus scan → persistent byte-offset index.
 
     ``workers > 1`` uses a process pool over files (Algorithm 2); the merge
-    is a dictionary union, as in the paper.  O(M×S), incurred once.
+    is a dictionary union, as in the paper, taken in ``store.files()``
+    order whatever order the workers finish in: where hashed keys collide,
+    the first location kept is the one ``workers=1`` keeps, so the index
+    does not depend on ``workers``.  O(M×S), incurred once.
     ``recompute_keys`` ignores the embedded hashed-key property and
     re-derives it from the full id at ``key_bits`` (key-width studies).
     """
@@ -346,7 +349,7 @@ def build_index(
     else:
         ctx = mp.get_context("fork" if hasattr(os, "fork") else "spawn")
         with ctx.Pool(processes=workers) as pool:
-            for fname, pairs, nbytes in pool.imap_unordered(scan_file_for_index, args):
+            for fname, pairs, nbytes in pool.imap(scan_file_for_index, args):
                 bytes_scanned += nbytes
                 for key, off in pairs:
                     idx.add(key, fname, off)

@@ -3,19 +3,12 @@
 //
 // Replaces the Pallas kernel `probe_blocks_pallas` (body `_probe_kernel`) of
 // src/repro/kernels/sorted_probe/kernel.py together with its stages A and C
-// (`sorted_probe_pallas` in ops.py).  Queries (Q, 2) and table (M, 2) are
-// uint32 (hi, lo) pairs, the table sorted ascending (duplicates allowed).
-// Outputs per query: found (uint8 0/1) and pos (int32), the GLOBAL lower
-// bound -- the first index whose key is >= the query -- exactly as the
-// reference `sorted_probe_ref` defines it, so a duplicate run is always
-// entered at its head.
-//
-// Bound on an H100: bytes, and in practice latency.  The work is
-// ceil(log2 M) dependent 8-byte loads per query; the bytes that must move
-// are the distinct table sectors the searches touch plus the queries and
-// outputs.  The top levels of the implicit search tree are shared by every
-// query and stay in L1/L2; the bottom levels are one random 32-byte sector
-// each.
+// (`sorted_probe_pallas` and `_fence_assign` in ops.py).  Queries (Q, 2) and
+// table (M, 2) are uint32 (hi, lo) pairs, the table sorted ascending
+// (duplicates allowed).  Outputs per query: found (uint8 0/1) and pos
+// (int32), the GLOBAL lower bound -- the first index whose key is >= the
+// query -- exactly as the reference `sorted_probe_ref` defines it, so a
+// duplicate run is always entered at its head.
 //
 // Design: one thread per query runs a branch-free lower-bound search over
 // the whole table.  Every thread does the same number of steps, so a warp
@@ -23,6 +16,18 @@
 // TPU design: the fence bucketing, the dense block compare and the overflow
 // fallback.  They exist because dynamic gathers are slow on a TPU; on this
 // card a gather is one load.
+//
+// What bounds it on an H100: not the bytes (the distinct 32-byte sectors
+// the searches touch) but the rate at which the memory system serves
+// scattered requests: a warp's search step is 32 loads at 32 unrelated
+// addresses, and the bottom steps of a table larger than L2 go to DRAM.
+// Measured on the card, a persistent grid that runs the top 13 levels of
+// the search from a copy in shared memory cut those requests, but paid a
+// fill of 8,191 keys per block and kept a quarter of the threads in flight.
+// It was faster only for a few hundred thousand queries in one table, a
+// shape neither the funnel's per-shard probes nor the service's requests
+// send, and slower at every shape they do send; so this one kernel stays.
+// At those shapes it is as fast as torch.searchsorted on the device.
 //
 // Plain C interface: the caller passes device pointers and the CUDA stream;
 // the function returns cudaGetLastError() after the launch.

@@ -118,15 +118,17 @@ def ptxas_report(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
-def count_launch(wrapper, counter: str = "launches") -> None:
-    """Add one to ``wrapper.launches`` (or another counter of it).
+def count_launch(wrapper, *counters: str) -> None:
+    """Add one to each of ``wrapper``'s ``counters`` (default:
+    ``wrapper.launches``), all under one lock.
 
     The service launches kernels from many threads at once (the router's
     scatter pool, the batchers' leaders), and ``+= 1`` on an attribute is
     not atomic, so every wrapper counts through this lock.
     """
     with _COUNT_LOCK:
-        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        for counter in counters or ("launches",):
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def _cuobjdump() -> str:

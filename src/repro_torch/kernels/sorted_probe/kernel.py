@@ -3,12 +3,19 @@
 
 Replaces the Pallas kernel ``probe_blocks_pallas`` / ``_probe_kernel`` of
 ``src/repro/kernels/sorted_probe/kernel.py`` and its stages A and C
-(``sorted_probe_pallas`` in ``ops.py``).  What bounds it on an H100: the
-bytes of the distinct table sectors the searches touch (and the latency of
-``ceil(log2 M)`` dependent loads per query).  Design: one thread per query,
-a branch-free lower-bound search over the whole table returning the global
-lower bound, so the TPU design's fence bucketing, dense block compare and
-overflow fallback are gone.
+(``sorted_probe_pallas`` and ``_fence_assign`` in ``ops.py``).  Design:
+one thread per query, a branch-free lower-bound search over the whole
+table returning the global lower bound, so the TPU design's fence
+bucketing, dense block compare and overflow fallback are gone.
+
+What bounds it on an H100: the rate at which the memory system serves
+scattered requests (a warp's search step is 32 loads at unrelated
+addresses), not the bytes.  A persistent grid that ran the search's top
+levels from shared memory was measured against this kernel on the card
+and paid only for a few hundred thousand queries in one table, a shape
+the funnel's per-shard probes and the service's requests never send; it
+was not kept (``PERF.md``).  At a serving request's shape the call's cost
+is the host's: an H100 runs the search in about 5 us.
 
 ``sorted_probe_cuda.launches`` counts the launches of the kernel (thread-safe).
 """

@@ -30,31 +30,128 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,w,seed", [(1, 8, 0), (4099, 40, 7), (1000, 128, 2**32 - 1)])
+HASH_WIDTHS = (1, 8, 31, 32, 33, 40, 64, 128, 256, 512)
+
+
+@pytest.mark.parametrize("w", HASH_WIDTHS)
+@pytest.mark.parametrize("n,seed", [(1, 0), (4099, 7), (1000, 2**32 - 1)])
 def test_hash_mix_kernel_matches_plain(cuda, n, w, seed):
+    """Every width, N off the 128-row tile, both ends of the seed range;
+    the route is the one ``route`` names, counted once."""
+    from repro_torch.kernels.hash_mix.kernel import route
+
     rng = np.random.default_rng(n + w)
     x = torch.from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.uint32)).to(cuda)
+    path = route(w, x.data_ptr())
+    assert path == ("staged" if w in (32, 64, 128, 256) else "rowwise")
     before = hash_mix_cuda.launches
+    on_route = getattr(hash_mix_cuda, f"{path}_launches")
     got = hash_mix_cuda(x, seed=seed).cpu().numpy()
     want = hash_mix_ref(x.cpu(), seed=seed).numpy()
     np.testing.assert_array_equal(got, want)
     assert hash_mix_cuda.launches == before + 1
+    assert getattr(hash_mix_cuda, f"{path}_launches") == on_route + 1
 
 
-@pytest.mark.parametrize("m,bits", [(1, 20), (7, 3), (100_003, 20), (100_003, 32)])
-def test_sorted_probe_kernel_matches_plain(cuda, m, bits):
-    rng = np.random.default_rng(m + bits)
+@pytest.mark.parametrize("w", [32, 64, 128, 256])
+def test_hash_mix_both_routes_agree_and_unaligned_slice(cuda, w):
+    """The staged kernel against the rowwise one and the plain version at
+    N = 70,001 (a ragged last tile, several tiles per block), and a
+    contiguous slice 4 bytes off 16-byte alignment, which takes the rowwise
+    route; two launches give the same bits."""
+    from repro_torch.kernels.hash_mix.kernel import launch, route
+
+    rng = np.random.default_rng(w)
+    n = 70_001
+    flat = torch.from_numpy(rng.integers(0, 2**32, n * w + 1, dtype=np.uint32)).to(cuda)
+    aligned = flat[: n * w].view(n, w)
+    shifted = flat[1:].view(n, w)
+    assert route(w, aligned.data_ptr()) == "staged"
+    assert route(w, shifted.data_ptr()) == "rowwise"
+    for x in (aligned, shifted):
+        want = hash_mix_ref(x.cpu(), seed=5).numpy()
+        for path in ("staged", "rowwise"):
+            if path == "staged" and x is shifted:
+                continue
+            out = torch.empty((n, 4), dtype=torch.uint32, device=cuda)
+            launch(path, x, out, 5)
+            np.testing.assert_array_equal(out.cpu().numpy(), want)
+        first = hash_mix_cuda(x, seed=5)
+        second = hash_mix_cuda(x, seed=5)
+        assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    # the staged entry point refuses an unaligned base rather than misread it
+    out = torch.empty((n, 4), dtype=torch.uint32, device=cuda)
+    with pytest.raises(RuntimeError, match="staged kernel launch failed"):
+        launch("staged", shifted, out, 0)
+
+
+def _probe_table(rng, m, bits):
+    """``m`` sorted (hi, lo) pairs; ``bits`` < 32 narrows lo and hi so that
+    runs of equal keys form."""
     t = rng.integers(0, 2**32, (m, 2), dtype=np.uint32)
-    t[:, 1] &= np.uint32((1 << bits) - 1) if bits < 32 else np.uint32(0xFFFFFFFF)
-    t = np.sort(t.view([("hi", "<u4"), ("lo", "<u4")]).ravel(),
-                order=["hi", "lo"]).view(np.uint32).reshape(-1, 2)
-    q = np.vstack([t[rng.integers(0, m, 3000)],
-                   rng.integers(0, 2**32, (500, 2), dtype=np.uint32)])
-    tq, tt = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
-    f, p = sorted_probe_cuda(tq, tt)
-    f_r, p_r = sorted_probe_ref(tq.cpu(), tt.cpu())
-    np.testing.assert_array_equal(f.cpu().numpy(), f_r.numpy())
-    np.testing.assert_array_equal(p.cpu().numpy(), p_r.numpy())
+    if bits < 32:
+        t[:, 0] &= np.uint32(3)
+        t[:, 1] &= np.uint32((1 << bits) - 1)
+    return np.sort(t.view([("hi", "<u4"), ("lo", "<u4")]).ravel(),
+                   order=["hi", "lo"]).view(np.uint32).reshape(-1, 2)
+
+
+def _probe_queries(rng, t, q):
+    """``q`` queries: most from the table, some random, the extremes and
+    keys below the minimum and above the maximum."""
+    m = t.shape[0]
+    fixed = np.array([[0, 0], [0xFFFFFFFF, 0xFFFFFFFF], t[0], t[-1]], np.uint32)
+    below = t[0].copy()
+    if below[1] > 0:
+        below[1] -= 1
+    above = t[-1].copy()
+    if above[1] < 0xFFFFFFFF:
+        above[1] += 1
+    body = np.vstack([t[rng.integers(0, m, q)],
+                      rng.integers(0, 2**32, (q, 2), dtype=np.uint32)])
+    rows = np.vstack([fixed, below, above, body[rng.permutation(2 * q)]])[:q]
+    return np.ascontiguousarray(rows[rng.permutation(q)])
+
+
+@pytest.mark.parametrize("bits", [3, 20, 32])
+@pytest.mark.parametrize("m", [1, 7, 2**13 - 1, 2**13 + 1, 100_003, 4_194_304])
+def test_sorted_probe_kernel_matches_plain(cuda, m, bits):
+    """The kernel against the plain version at Q = 1, 31, 3,500 and
+    300,000: duplicate runs, keys below the minimum and above the maximum;
+    one launch counted per call."""
+    rng = np.random.default_rng(m + bits)
+    tt = torch.from_numpy(_probe_table(rng, m, bits)).to(cuda)
+    for q in (1, 31, 3_500, 300_000):
+        tq = torch.from_numpy(_probe_queries(rng, tt.cpu().numpy(), q)).to(cuda)
+        f_r, p_r = sorted_probe_ref(tq, tt)
+        before = sorted_probe_cuda.launches
+        f, p = sorted_probe_cuda(tq, tt)
+        assert torch.equal(f, f_r) and torch.equal(p, p_r), (m, bits, q)
+        assert sorted_probe_cuda.launches == before + 1
+
+
+def test_sorted_probe_is_deterministic(cuda):
+    """Two launches give the same bits, at a request's shape and a bulk
+    batch's."""
+    rng = np.random.default_rng(11)
+    tt = torch.from_numpy(_probe_table(rng, 1_000_003, 32)).to(cuda)
+    for q in (32, 300_000):
+        tq = torch.from_numpy(_probe_queries(rng, tt.cpu().numpy(), q)).to(cuda)
+        f1, p1 = sorted_probe_cuda(tq, tt)
+        f2, p2 = sorted_probe_cuda(tq, tt)
+        assert torch.equal(f1, f2) and torch.equal(p1, p2)
+
+
+def test_hash_mix_sass_has_its_design_instruction(cuda):
+    """The staged hash_mix copies rows with cp.async (LDGSTS) and reads
+    them from shared memory (LDS); the rowwise kernel does neither."""
+    from repro_torch.kernels import build
+
+    mix = build.sass("hash_mix")
+    staged = build.sass_opcode_counts(mix, "hash_mix_staged_kernel", ("LDGSTS", "LDS"))
+    assert staged["LDGSTS"] > 0 and staged["LDS"] > 0, staged
+    rowwise = build.sass_opcode_counts(mix, "hash_mix_kernel", ("LDGSTS", "LDS"))
+    assert rowwise == {"LDGSTS": 0, "LDS": 0}, rowwise
 
 
 def test_funnel_on_the_card(cuda):
