@@ -55,7 +55,12 @@
    before and read just after: each kernel must have launched on that path.
    The 17-bit phase's mismatch count must equal ``HASHED_MISMATCHES`` and
    the count through an index built by one process on the same corpus,
-   whose entries the pool build's must equal.
+   whose entries the pool build's must equal.  The funnel's §VI collision
+   scan at the same 17-bit width (``scan_corpus`` == ``scan_pairs_sorted``,
+   every mismatch inside its colliding group, Eq. 4 beside Eq. 5) and its
+   Algorithm 1 baseline (``naive_scan`` == ``extract``, Eq. 2/3 projected
+   to PubChem) are printed beside the pinned count, and ``digest_ids`` of
+   the targets on the card must equal the CPU's bit for bit.
 4. The query service on the funnel's corpus and store through
    ``repro_torch.launch.serve_index`` on the card (2 replicas, 8 clients,
    2 s per arm): lookup mode with its ``svc.fetch == serial extract``
@@ -81,7 +86,20 @@
    before the phase).  Then a third
    ``generate`` of the served engine under ``torch.profiler``: for its
    prefill and its decode, the card's busy share and the kernels that take
-   the most device time.
+   the most device time.  The same weights then serve through
+   ``ContinuousEngine`` (8 slots, blocks of 16 rows, ``max_len`` 2,080, the
+   launcher's pool of 1,172 blocks): 16 requests from 4 client threads,
+   the 8 prompts and then 8 that reuse a block-aligned prefix of 1,024 or
+   1,536 tokens of a long one, so prefix hits send ``lm_prefill_suffix``
+   through ``flash_attention`` with ``Skv > Sq``.  TTFT and ITL p50/p99,
+   tokens/s, the prefix hit rate and ``flash_attention`` launches split
+   into full and suffix prefill (all on the tensor-core route) are
+   printed, and after ``close(drain=True)`` ``BlockManager.check()`` must
+   pass and no block may stay in use.  Then parity in float32 (yi-6b at
+   full width, 2 layers): the continuous engine's greedy tokens equal the
+   static engine's, prefix on equals off (a differing token passes only
+   where both tokens lie within ``NEAR_TIE`` of the top logit, printed),
+   and suffix-prefill logits lie within ``SUFFIX_ATOL`` of full prefill's.
 7. A model check of the recurrent families, in float32 with TF32 off,
    weights made once and loaded into a card model and a CPU model:
    mamba2-1.3b at full width cut to 2 layers, and jamba-1.5-large-398b's
@@ -97,8 +115,21 @@
    have launched exactly 48 times per prefill and never in decode (launch
    counts set to 0 just before the phase).  Then the served engine under
    ``torch.profiler``, as in step 6.
-9. A ``{"kernels": [...]}`` line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
+9. MoE: moonshot-v1-16b-a3b at full width cut to 2 layers, float32, card
+   against CPU: the router's top-6 experts first (flips only at a
+   probability near-tie pass), then prefill logits within
+   ``MODEL_ATOL``, dropped assignments on both sides.  Then the model at
+   its published widths and full depth (48 layers, 64 experts of d_ff
+   1,408, top-6), bf16, drawn on the card, served as in step 6 with
+   ``max_len`` 2,080 (48 tensor-core ``flash_attention`` launches a
+   prefill, the phase's own peak memory, dropped assignments), profiled,
+   and 8 requests through ``ContinuousEngine`` on the same weights
+   (prefix sharing off for MoE): every request completes; SLO percentiles.
+10. A ``{"kernels": [...]}`` line (``launches`` summed over the paths:
+   ``hash_mix`` in the service and ``digest_ids``, ``flash_attention`` in
+   yi-6b's static and continuous serving and moonshot's), the card line,
+   and as the last line ``{"ok": true, "device": {...}}``.  Any failure
+   exits non-zero before it.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -106,13 +137,16 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -151,9 +185,16 @@ TIES_KS = (1, 32, 1024, 2048)
 PADS_ROWS = 5_000          # ties plane cut to 5,000 rows ...
 PADS_K = 8_192             # ... at k > N: pads, lists in global memory
 BF16_FLOPS_PER_S = 989e12  # tensor-core bf16 peak (H100 SXM, dense)
-# flash_attention cases: (name, B, Hq, Hkv, S, D, window)
-FA_YI = ("yi-6b", 8, 32, 4, 2048, 128, None)
-FA_GEMMA = ("gemma3-12b", 1, 16, 8, 4096, 256, 1024)
+# flash_attention cases: (name, B, Hq, Hkv, S, D, window, start).  S query
+# rows are the last S of start + S keys (off = start); a case with start > 0
+# is suffix prefill's, k and v gathered from a shuffled block pool of
+# CONT_BLOCK-row blocks (``paged_view``) as ``lm_prefill_suffix`` gathers them
+FA_YI = ("yi-6b", 8, 32, 4, 2048, 128, None, 0)
+FA_GEMMA = ("gemma3-12b", 1, 16, 8, 4096, 256, 1024, 0)
+FA_MOONSHOT = ("moonshot-v1-16b-a3b", 8, 16, 16, 2048, 128, None, 0)
+FA_SUFFIX = (("yi-6b suffix", 1, 32, 4, 512, 128, None, 1536),
+             ("yi-6b suffix short", 1, 32, 4, 48, 128, None, 1024),
+             ("yi-6b suffix unaligned", 1, 32, 4, 208, 128, None, 1040))
 # flash_attention in bfloat16 against the plain version's float32 output on
 # the same values (``bound_excess`` of the plain version's module):
 #   CUDA-core route: |err| <= u |ref| + atol, u = 2^-8 the bf16 cast's
@@ -561,30 +602,43 @@ def kernel_phase(seed: int):
 
 def attention_case(case, seed: int):
     """Hold flash_attention's kernel to its plain version in bfloat16 on
-    the model's (B, S, H, D) layout viewed as (B, H, S, D); time it, the
-    plain version and scaled_dot_product_attention, and read SDPA's output
-    under the same bounds."""
+    the model's (B, S, H, D) layout viewed as (B, H, S, D) (k and v of a
+    suffix case gathered from a block pool); time it, the plain version
+    and scaled_dot_product_attention, and read SDPA's output under the
+    same bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
     from repro_torch.kernels.flash_attention.ref import bound_excess, flash_attention_ref
+    from repro_torch.models.common import paged_view
 
-    name, b, hq, hkv, s, d, window = case
+    name, b, hq, hkv, s, d, window, off = case
+    sk = off + s
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 3)
 
-    def make(h):
-        x = torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
+    def make(h, rows):
+        x = torch.randn((b, rows, h, d), generator=g, device=dev).to(torch.bfloat16)
         return x.transpose(1, 2)
 
-    q, k, v = make(hq), make(hkv), make(hkv)
+    q = make(hq, s)
+    if off:
+        n_blocks = sk // CONT_BLOCK
+        table = torch.randperm(2 * n_blocks, generator=g, device=dev)[:n_blocks] + 1
+        pool_rows = (2 * n_blocks + 1) * CONT_BLOCK
+        k, v = (paged_view(torch.randn((hkv, pool_rows, d), generator=g, device=dev)
+                           .to(torch.bfloat16), table[None], CONT_BLOCK)
+                for _ in range(2))
+    else:
+        k, v = make(hkv, sk), make(hkv, sk)
     path = route(q, k, v)
     if path != "tensor_core":
         fail(f"flash_attention {name}: the serving layout took the {path} route")
     mask = None
-    if window is not None:
-        i = torch.arange(s, device=dev)
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    if off or window is not None:
+        i = torch.arange(s, device=dev)[:, None] + off
+        j = torch.arange(sk, device=dev)[None, :]
+        mask = (j <= i) & (j > i - (window or sk + 1))
 
     def sdpa():
         return F.scaled_dot_product_attention(
@@ -595,9 +649,11 @@ def attention_case(case, seed: int):
     ref = flash_attention_ref(qf, kf, vf, causal=True, window=window)
     abs_v = flash_attention_ref(qf, kf, vf.abs(), causal=True, window=window)
     err, ratio = float((out - ref).abs().max()), bound_excess(out, ref, abs_v)
-    cut = (slice(None), slice(None), slice(FA_DROP, None))
-    lost = flash_attention_ref(qf[cut], kf[cut], vf[cut], causal=True, window=window)
-    wrong = bound_excess(lost, ref[cut], abs_v[cut])
+    # keys 0..FA_DROP-1 lost: the rows that saw them, against the same rows
+    rows = (slice(None), slice(None), slice(max(0, FA_DROP - off), None))
+    keys = (slice(None), slice(None), slice(FA_DROP, None))
+    lost = flash_attention_ref(qf[rows], kf[keys], vf[keys], causal=True, window=window)
+    wrong = bound_excess(lost, ref[rows], abs_v[rows])
     lib = sdpa().float()
     lib_derived, lib_cast = bound_excess(lib, ref, abs_v), bound_excess(lib, ref)
     same = float((lib == out).float().mean())
@@ -620,14 +676,14 @@ def attention_case(case, seed: int):
                                                 window=window), 2, warmup=1)
     library = cuda_ms(sdpa, 20, warmup=2)
     # the visible (query, key) pairs of this mask, two products of D each
-    w = s if window is None else window
-    pairs = sum(min(p + 1, w) for p in range(s))
+    w = sk if window is None else window
+    pairs = sum(min(p + off + 1, w) for p in range(s))
     flops = 4 * b * hq * d * pairs
-    nbytes = 2 * b * s * d * (2 * hq + 2 * hkv)
+    nbytes = 2 * b * d * (2 * hq * s + 2 * hkv * sk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    print(f"flash_attention[{name}]: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+    print(f"flash_attention[{name}]: B={b} Hq={hq} Hkv={hkv} Sq={s} Skv={sk} D={d} "
           f"window={window} bf16 causal max_abs_err={err:.6g} ({tol}); "
           f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms(sdpa)={library:.6f} "
           f"flops={flops} bytes={nbytes} bound_ms={bnd:.6f} ({by}) "
@@ -815,20 +871,25 @@ def model_phase(work: Path, seed: int, cases, wrappers) -> None:
         torch.cuda.empty_cache()
 
 
-def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str) -> int:
+def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
+                     max_len: int = SERVE_MAX_LEN):
     """``arch`` at its published widths and full depth, bfloat16, through
     launch.serve.run; ``wrapper``'s kernel must launch exactly once per
-    layer per prefill.  Returns its launches over the phase."""
+    layer per prefill.  Returns its launches over the phase, the served
+    engine (for callers that go on serving its model) and the tokens of
+    the first run."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.models.moe import MoE, monitor
 
     name = wrapper.__name__.removesuffix("_cuda")
     prompts = corpus_prompts(work, SERVE_LENGTHS)
     args = serve.build_parser().parse_args([
         "--arch", arch, "--full-config", "--device", "cuda",
         "--seed", str(seed), "--max-new-tokens", str(SERVE_NEW_TOKENS),
-        "--max-len", str(SERVE_MAX_LEN), "--repeats", "2", "--prompts", *prompts,
+        "--max-len", str(max_len), "--repeats", "2", "--prompts", *prompts,
     ])
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     wrapper.launches = 0
     routed = hasattr(wrapper, "tc_launches")  # flash_attention: two routes
@@ -859,44 +920,70 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str) -> in
               f"{out['prompt_tokens']}; prefill_ms={r['prefill_ms']:.3f} "
               f"decode {r['decode_steps']} steps in {r['decode_ms']:.3f} ms = "
               f"{r['decode_tokens_per_s']:.1f} tokens/s; card: {card}", flush=True)
+    engine = out.pop("engine")
+    moe = ""
+    if any(isinstance(m, MoE) for m in engine.model.modules()):
+        # the served prefill again, its routing recorded (decode drops nothing)
+        toks, lens = engine._pad_prompts([engine.tok.encode(p, add_eos=False)
+                                          for p in prompts])
+        with torch.no_grad(), monitor(engine.model) as calls:
+            engine.api.prefill(engine.model, {
+                "tokens": torch.from_numpy(toks).cuda(),
+                "lengths": torch.from_numpy(lens).cuda()}, max_len=max_len)
+        moe = (f"; MoE assignments dropped in one prefill (B={len(prompts)} x "
+               f"{toks.shape[1]} tokens, {len(calls)} MoE layers): "
+               f"{int(sum(c.dropped for c in calls))} (decode: no drop)")
+        del calls
     print(f"lm_serving[{arch}]: {out['n_layers']} layers bf16, init "
           f"{out['init_s']:.1f} s, weight_bytes={out['weight_bytes']} "
           f"cache_bytes={out['kv_cache_bytes']} (summed over the cache prefill "
-          f"allocated) peak_allocated={peak} (this phase); {name} launches "
+          f"allocated, max_len {max_len}) peak_allocated={peak} "
+          f"(allocated at the phase's start: {base}; own peak "
+          f"{peak - base}); {name} launches "
           f"{launches} ({launches // 2} per prefill"
-          f"{f', {tc_launches} on the tensor-core route' if routed else ''}); "
-          f"tokens identical over 2 runs; {secs:.1f} s", flush=True)
-    profile_generate(out.pop("engine"), prompts, card, arch)
+          f"{f', {tc_launches} on the tensor-core route' if routed else ''})"
+          f"{moe}; tokens identical over 2 runs; {secs:.1f} s", flush=True)
+    profile_generate(engine, prompts, card, arch)
     del out
     torch.cuda.empty_cache()
-    return launches
+    return launches, engine, runs[0]["token_ids"]
 
 
 def profile_generate(engine, prompts, card: str, arch: str) -> None:
     """Where serving's time goes: one more ``generate`` of the served engine
-    under ``torch.profiler``.  For its ``Engine.prefill`` and
-    ``Engine.decode`` spans: the span's wall time, the card's busy time in
-    it (the device's kernels and copies that start inside the span; one
-    stream, so they do not overlap) and the kernels that take the most."""
+    under ``torch.profiler``, split by its ``Engine.prefill`` and
+    ``Engine.decode`` spans (see :func:`profile_spans`)."""
+    profile_spans(lambda: engine.generate(prompts),
+                  ("Engine.prefill", "Engine.decode"), card, arch)
+
+
+def profile_spans(run, names, card: str, label: str) -> None:
+    """``run()`` under ``torch.profiler``.  For each span name in ``names``:
+    the wall time of all its spans, the card's busy time in them (the
+    device's kernels and copies that start inside one; one stream, so they
+    do not overlap) and the kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("Engine.prefill", "Engine.decode")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        engine.generate(prompts)
+        run()
     events = prof.events()
-    spans = {e.name: e.time_range for e in events
-             if e.name in names and e.device_type == DeviceType.CPU}
     device = [e for e in events if e.device_type == DeviceType.CUDA
               and e.name not in names and not getattr(e, "is_user_annotation", False)]
     for name in names:
-        span = spans.get(name)
-        inside = [e for e in device if span and span.start <= e.time_range.start < span.end]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.name == name and e.device_type == DeviceType.CPU)
+        starts = [a for a, _ in spans]
+        inside = []
+        for e in device:
+            i = bisect.bisect_right(starts, e.time_range.start) - 1
+            if i >= 0 and e.time_range.start < spans[i][1]:
+                inside.append(e)
         if not inside:
-            print(f"lm_profile[{arch}][{name}]: the profiler saw no device events in "
+            print(f"lm_profile[{label}][{name}]: the profiler saw no device events in "
                   "it: busy share not measured", flush=True)
             continue
-        wall = span.elapsed_us()
+        wall = sum(b - a for a, b in spans)
         busy = sum(e.time_range.elapsed_us() for e in inside)
         per_kernel: dict = {}
         for e in inside:
@@ -904,9 +991,10 @@ def profile_generate(engine, prompts, card: str, arch: str) -> None:
             per_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
         tops = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:5]
         top = "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{n}" for k, (t, n) in tops)
-        print(f"lm_profile[{arch}][{name}]: wall {wall / 1e3:.3f} ms under the profiler, "
-              f"device busy {busy / 1e3:.3f} ms = {busy / wall:.3f} of it "
-              f"({len(inside)} device events); top: {top}; card: {card}", flush=True)
+        print(f"lm_profile[{label}][{name}]: {len(spans)} spans, wall {wall / 1e3:.3f} "
+              f"ms under the profiler, device busy {busy / 1e3:.3f} ms = "
+              f"{busy / wall:.3f} of it ({len(inside)} device events); top: {top}; "
+              f"card: {card}", flush=True)
 
 
 def reset_launches(wrappers) -> None:
@@ -990,6 +1078,515 @@ def serving_phase(serve_index, work: Path, wrappers, card: str):
     return launches
 
 
+def funnel_paper_phases(summary: dict, work: Path, seed: int, card: str) -> int:
+    """The funnel's §VI scan and Algorithm 1 baseline (run inside
+    ``run_funnel``, which raises on a disagreement), printed beside the
+    pinned mismatches; then ``digest_ids`` on the card against the CPU's,
+    bit for bit, on the targets.  Returns ``digest_ids``' launches."""
+    from repro_torch.core import intersect_host
+    from repro_torch.core.sdfgen import db_id_list
+    from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
+    from repro_torch.kernels.hash_mix.ops import digest_ids
+    from repro_torch.launch.funnel import funnel_spec
+
+    col, base = summary["collisions"], summary["baseline"]
+    print(f"funnel §VI scan at {col['key_bits']}-bit keys: {col['colliding_keys']} "
+          f"colliding keys, {col['affected_records']} affected of {col['records']} "
+          f"records (scan_corpus == scan_pairs_sorted == collisions_from_pairs); "
+          f"Eq. 4 rate {col['empirical_rate']:.6f}, Eq. 5 expectation "
+          f"{col['birthday_expectation']:.1f}; the extraction's "
+          f"{col['mismatches']} mismatches (pinned {HASHED_MISMATCHES} at seed 0): "
+          f"{col['collision_mismatches']} inside colliding groups (at most "
+          f"{col['affected_records'] - col['colliding_keys']} possible), "
+          f"{col['mismatches'] - col['collision_mismatches']} absent targets; "
+          f"scan {col['scan_s']:.2f} s", flush=True)
+    if seed == 0 and col["mismatches"] != HASHED_MISMATCHES:
+        fail(f"§VI scan saw {col['mismatches']} mismatches, pinned {HASHED_MISMATCHES}")
+    print(f"funnel Algorithm 1: {base['targets_checked']} targets found by naive_scan "
+          f"== extract; scan {base['scan_records_per_s']:.0f} records/s (host), "
+          f"{base['comparisons_per_s']:.4g} list comparisons/s; Eq. 2/3 at "
+          f"176,929,690 records x 477,123 targets: {base['projected_ops']:.4g} "
+          f"comparisons = {base['projected_naive_s']:.4g} s "
+          f"({base['projected_naive_s'] / 86400:.1f} days); indexed extract "
+          f"{base['indexed_s']:.3f} s here, {base['indexed_per_target_s'] * 1e3:.4f} "
+          f"ms a target, {base['projected_indexed_s']:.1f} s projected: ratio "
+          f"{base['ratio']:.1f}x (host clock)", flush=True)
+    spec = funnel_spec(FUNNEL_RECORDS, seed)
+    targets = intersect_host(db_id_list(spec, "chembl", extra_outside=30),
+                             db_id_list(spec, "emolecules", extra_outside=30)).ids
+    hash_mix_cuda.launches = 0
+    got = digest_ids(targets, seed=seed, device="cuda")
+    n = hash_mix_cuda.launches
+    want = digest_ids(targets, seed=seed, device="cpu")
+    if not np.array_equal(got, want):
+        fail(f"digest_ids: card differs from the CPU on "
+             f"{int((got != want).any(axis=1).sum())} of {len(targets)} targets")
+    print(f"digest_ids: {len(targets)} targets, card == CPU bit for bit, "
+          f"{n} hash_mix launch", flush=True)
+    return n
+
+
+# continuous serving: the engine's slots, blocks and rows, and the prompts
+# that reuse a block-aligned prefix of a served long prompt: (index of the
+# long prompt in SERVE_LENGTHS, prefix tokens adopted, new suffix bytes).
+# The parity phase sends the first PARITY_REUSE of them.
+CONT_SLOTS = 8
+CONT_BLOCK = 16
+CONT_MAX_LEN = 2080        # a 2,048-token prompt and 32 new tokens
+CONT_CLIENTS = CONT_SLOTS  # one corpus prompt each, then two REUSE at once
+REUSE = ((5, 1024, 40), (6, 1536, 200), (7, 1536, 97), (7, 1024, 300),
+         (6, 1024, 16), (5, 1024, 500), (7, 1536, 33), (6, 1536, 450),
+         (5, 1024, 120), (6, 1024, 260), (7, 1024, 700), (7, 1536, 480),
+         (6, 1536, 64), (5, 1024, 900), (6, 1024, 380), (7, 1536, 250))
+PARITY_REUSE = 8
+SLO_P99_MIN = 100          # fewer samples than this: the tail printed is the max
+NEAR_TIE = 1e-4            # logits of two tokens this close: argmax may flip
+SUFFIX_ATOL = 1e-4         # float32 suffix-prefill logits against full prefill's
+PARITY_NEW_TOKENS = 16
+MOE_NEAR_TIE = 1e-6        # router probabilities this close may swap experts
+
+
+def reuse_prompts(work: Path, prompts) -> list:
+    """The ``REUSE`` prompts: BOS plus the first ``prefix - 1`` bytes of a
+    long corpus prompt (``prefix`` tokens, block-aligned), then a suffix cut
+    from another record."""
+    suffixes = corpus_prompts(work, [n for *_, n in REUSE])
+    return [prompts[i][:prefix - 1] + suf
+            for (i, prefix, _), suf in zip(REUSE, suffixes)]
+
+
+def count_prefill_launches(engine, split: dict) -> None:
+    """Wrap ``engine``'s full and suffix prefill so that each adds its
+    ``flash_attention`` launches (all, and on the tensor-core route) to
+    ``split``: the leader is the one thread that launches."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda as fa
+
+    def counted(fn, kind):
+        def call(*a, **k):
+            before = (fa.launches, fa.tc_launches)
+            out = fn(*a, **k)
+            split[kind] = split.get(kind, 0) + fa.launches - before[0]
+            split[f"{kind}_tc"] = split.get(f"{kind}_tc", 0) + fa.tc_launches - before[1]
+            split[f"{kind}_calls"] = split.get(f"{kind}_calls", 0) + 1
+            return out
+        return call
+
+    engine.api = dataclasses.replace(
+        engine.api, prefill=counted(engine.api.prefill, "full"),
+        prefill_suffix=counted(engine.api.prefill_suffix, "suffix"))
+
+
+def drain_and_check(engine, name: str) -> None:
+    """``close(drain=True)``, the allocator's books exact, and no block in
+    use once the prefix index lets go of its entries."""
+    engine.close(drain=True)
+    engine.check()
+    mgr, index = engine._mgr, engine._index
+    held = len(index.block_refs()) if index is not None else 0
+    if mgr.n_in_use != held:
+        fail(f"{name}: {mgr.n_in_use} blocks in use after close, the index holds {held}")
+    if index is not None:
+        index.clear()
+    st = mgr.stats()
+    if st["in_use"] or st["allocs"] != st["frees"]:
+        fail(f"{name}: blocks left in use after close: {st}")
+    engine.check()
+    print(f"{name}: closed (drain); BlockManager.check() passed, 0 blocks in use "
+          f"after the prefix index let go of {held}; allocator {json.dumps(st)}",
+          flush=True)
+
+
+def slo_text(eng) -> str:
+    """TTFT and ITL of ``eng``'s requests: the median and the tail, the
+    tail a p99 from ``SLO_P99_MIN`` samples on and the max below that."""
+    with eng._lock:
+        series = {"TTFT": list(eng._ttft_ms), "ITL": list(eng._itl_ms)}
+    parts = []
+    for name, xs in series.items():
+        tail = (f"p99 {np.percentile(xs, 99):.3f}" if len(xs) >= SLO_P99_MIN
+                else f"max {max(xs):.3f}")
+        parts.append(f"{name} p50 {np.percentile(xs, 50):.3f} / {tail} ms over "
+                     f"{len(xs)}")
+    return ", ".join(parts)
+
+
+def continuous_serving_phase(work: Path, engine, static_tokens, card: str) -> int:
+    """yi-6b's served model through ``ContinuousEngine`` (bf16, full depth):
+    ``CONT_CLIENTS`` client threads, one per slot, each first sends its
+    corpus prompt and waits for it, then (after every thread's) sends two
+    ``REUSE`` prompts at once: twice as many requests as slots, so slots
+    are reused and requests queue for one.  Returns the
+    ``flash_attention`` launches of the phase."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.serve import paged_spec
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import ContinuousEngine
+
+    cfg, model = engine.cfg, engine.model
+    prompts = corpus_prompts(work, SERVE_LENGTHS)
+    reuse = reuse_prompts(work, prompts)
+    n_req = len(prompts) + len(reuse)
+    spec = paged_spec(CONT_MAX_LEN, CONT_BLOCK, CONT_SLOTS, prefix_cache=True)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(cfg, model, spec,
+                           ServeConfig(max_new_tokens=SERVE_NEW_TOKENS,
+                                       max_len=spec.max_len),
+                           prefix_cache=True, device="cuda")
+    pool_bytes = sum(t.nbytes for layer in eng._cache for t in layer.values())
+    split: dict = {}
+    count_prefill_launches(eng, split)
+    flash_attention_cuda.launches = flash_attention_cuda.tc_launches = 0
+    results, errors = {}, []
+    barrier = threading.Barrier(CONT_CLIENTS)
+    outstanding = {"now": 0, "peak": 0}
+    lock = threading.Lock()
+
+    def send(texts):
+        with lock:
+            outstanding["now"] += len(texts)
+            outstanding["peak"] = max(outstanding["peak"], outstanding["now"])
+        futures = [eng.submit(t) for t in texts]
+        out = [f.result(timeout=600) for f in futures]
+        with lock:
+            outstanding["now"] -= len(texts)
+        return out
+
+    def client(t):
+        try:
+            results[("corpus", t)] = send([prompts[t]])[0]
+            barrier.wait(timeout=600)
+            pair = (2 * t, 2 * t + 1)
+            for j, r in zip(pair, send([reuse[j] for j in pair])):
+                results[("reuse", j)] = r
+        except BaseException as e:  # reported below, the phase fails
+            errors.append(repr(e))
+            barrier.abort()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(CONT_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads) or len(results) != n_req:
+        fail(f"continuous yi-6b: {len(results)} of {n_req} requests completed; {errors}")
+    launches, tc = flash_attention_cuda.launches, flash_attention_cuda.tc_launches
+    c = eng.counters()
+    hits, prefills, saved = c["prefix_hits"], c["prefills"], c["prefill_tokens_saved"]
+    n_tokens = sum(len(r.token_ids) for r in results.values())
+    peak = torch.cuda.max_memory_allocated()
+    same = sum(a == b for i in range(len(prompts))
+               for a, b in zip(results[("corpus", i)].token_ids, static_tokens[i]))
+    total = sum(len(static_tokens[i]) for i in range(len(prompts)))
+    print(f"continuous[yi-6b]: {CONT_SLOTS} slots, block {CONT_BLOCK}, max_len "
+          f"{spec.max_len}, pool {spec.n_blocks} blocks = {pool_bytes} bytes; "
+          f"{n_req} requests from {CONT_CLIENTS} threads in {wall:.3f} s: {n_tokens} "
+          f"tokens = {n_tokens / wall:.1f} tokens/s; {slo_text(eng)}; peak_active "
+          f"{c['peak_active']:.0f} of {CONT_SLOTS} slots, peak outstanding "
+          f"{outstanding['peak']} requests, admission_stalls "
+          f"{c['admission_stalls']:.0f} (waits on blocks), {c['steps']:.0f} decode "
+          f"steps at {c['tokens_per_step']:.3f} tokens a step, index evictions "
+          f"{c.get('pfx_evictions', 0):.0f}; prefix hits {hits:.0f} of "
+          f"{prefills:.0f} prefills (hit rate {hits / max(prefills, 1):.3f}), "
+          f"{saved:.0f} prefill tokens saved; flash_attention {launches} launches, "
+          f"{tc} tensor-core: full prefill {split.get('full', 0)} "
+          f"({split.get('full_tc', 0)} tc, {split.get('full_calls', 0)} calls), "
+          f"suffix prefill {split.get('suffix', 0)} ({split.get('suffix_tc', 0)} tc, "
+          f"{split.get('suffix_calls', 0)} calls); bf16 tokens identical to the "
+          f"static run's: {same} of {total} = {same / max(total, 1):.4f} (no gate: "
+          f"bf16 near-ties); peak_allocated={peak} (own {peak - base}); "
+          f"card: {card}", flush=True)
+    if c["peak_active"] != CONT_SLOTS or outstanding["peak"] <= CONT_SLOTS:
+        fail(f"continuous yi-6b: {c['peak_active']:.0f} slots busy at most with "
+             f"{outstanding['peak']} requests outstanding: the traffic did not fill "
+             f"the {CONT_SLOTS} slots and queue beyond them")
+    n_layers = cfg.n_layers
+    if hits < len(REUSE) or split.get("suffix_calls", 0) != hits:
+        fail(f"continuous yi-6b: {hits} prefix hits, want {len(REUSE)}")
+    if (split.get("full", 0) != n_layers * split.get("full_calls", 0)
+            or split.get("suffix", 0) != n_layers * split.get("suffix_calls", 0)
+            or launches != split.get("full", 0) + split.get("suffix", 0)):
+        fail(f"continuous yi-6b: flash_attention launches {launches} do not split "
+             f"one per layer per prefill: {split}")
+    if tc != launches:
+        fail(f"continuous yi-6b: {launches - tc} flash_attention launches left the "
+             "tensor-core route")
+    profile_spans(lambda: eng.generate(prompts),
+                  ("ContinuousEngine.prefill", "ContinuousEngine.decode"), card,
+                  "yi-6b continuous")
+    drain_and_check(eng, "continuous[yi-6b]")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def near_tie(model, cfg, prompt_ids, common, tokens) -> float:
+    """How far below the top logit the ``tokens`` lie at the step after
+    ``prompt_ids + common``, from a float32 prefill of batch 1 on the card."""
+    from repro_torch.models.transformer import lm_prefill
+
+    ids = torch.tensor([list(prompt_ids) + list(common)], device="cuda")
+    logits = lm_prefill(model, cfg, ids)[0][0].float()
+    top = logits.max()
+    return max(float(top - logits[t]) for t in tokens)
+
+
+def compare_tokens(name, a, b, model, cfg, prompts) -> int:
+    """Greedy rows ``a`` and ``b`` of the same prompts must agree; a differing
+    token passes only at a near-tie (both tokens within ``NEAR_TIE`` of the
+    top logit, recomputed), and is printed.  Returns the near-ties."""
+    from repro_torch.data.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    ties = 0
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        for j, (x, y) in enumerate(zip(ra, rb)):
+            if x == y:
+                continue
+            gap = near_tie(model, cfg, tok.encode(prompts[i], add_eos=False),
+                           ra[:j], (x, y))
+            print(f"{name}: prompt {i} step {j}: tokens {x} / {y}, both within "
+                  f"{gap:.3g} of the top logit", flush=True)
+            if gap > NEAR_TIE:
+                fail(f"{name}: prompt {i} differs at step {j} ({x} / {y}), "
+                     f"{gap:.3g} apart: not a near-tie")
+            ties += 1
+            break
+        else:
+            if len(ra) != len(rb):
+                fail(f"{name}: prompt {i}: {len(ra)} against {len(rb)} tokens")
+    return ties
+
+
+def continuous_parity_phase(work: Path, seed: int, card: str) -> None:
+    """float32, yi-6b at full width cut to ``MODEL_LAYERS`` layers, one set of
+    weights on the card: ContinuousEngine == the static Engine, prefix on
+    == off (under the near-tie rule), and suffix-prefill logits within
+    ``SUFFIX_ATOL`` of full prefill's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.serve import paged_spec
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.kvcache import BlockManager, PrefixIndex
+    from repro_torch.serve.scheduler import ContinuousEngine
+    from repro_torch.data.tokenizer import ByteTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=MODEL_LAYERS,
+                              dtype="float32")
+    api = build_model(cfg)
+    model = api.init(torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    prompts = corpus_prompts(work, SERVE_LENGTHS)
+    texts = prompts + reuse_prompts(work, prompts)[:PARITY_REUSE]
+    spec = paged_spec(CONT_MAX_LEN, CONT_BLOCK, CONT_SLOTS, prefix_cache=True)
+    scfg = ServeConfig(max_new_tokens=PARITY_NEW_TOKENS, max_len=spec.max_len)
+    static = [r.token_ids for r in Engine(cfg, model, scfg, device="cuda").generate(texts)]
+    rows = {}
+    for prefix in (True, False):
+        eng = ContinuousEngine(cfg, model, spec, scfg, prefix_cache=prefix,
+                               device="cuda")
+        rows[prefix] = [r.token_ids for r in eng.generate(texts)]
+        hits = eng.stats.prefix_hits
+        drain_and_check(eng, f"parity[prefix {'on' if prefix else 'off'}]")
+        if prefix and hits < PARITY_REUSE:
+            fail(f"parity: {hits} prefix hits, want at least {PARITY_REUSE}")
+    ties = compare_tokens("parity continuous vs static", rows[True], static,
+                          model, cfg, texts)
+    ties += compare_tokens("parity prefix on vs off", rows[True], rows[False],
+                           model, cfg, texts)
+
+    # suffix prefill against full prefill, through the paged functions
+    tok = ByteTokenizer()
+    bs = CONT_BLOCK
+    mgr = BlockManager(spec)
+    index = PrefixIndex(mgr)
+    pool = api.paged_cache_init(spec.n_blocks, bs, "cuda")
+    worst = 0.0
+    for slot, (i, prefix, _) in enumerate(REUSE[:CONT_SLOTS // 2]):
+        src = tok.encode(prompts[i], add_eos=False)
+        if not mgr.admit(2 * slot, len(src)):
+            fail("parity: the pool refused a suffix case's source prompt")
+        bucket = -(-len(src) // bs) * bs
+        ids = torch.full((1, bucket), tok.pad_id, device="cuda")
+        ids[0, :len(src)] = torch.tensor(src)
+        _, dense = api.prefill(model, {"tokens": ids, "lengths": torch.tensor(
+            [len(src)], device="cuda")}, max_len=spec.max_len)
+        api.paged_prefill_write(pool, dense, torch.from_numpy(
+            mgr.tables[2 * slot]).cuda(), bs)
+        index.publish(src, mgr.slot_blocks(2 * slot), len(src))
+        del dense
+        ids2 = tok.encode(texts[len(prompts) + slot], add_eos=False)
+        blocks, start = index.match(ids2)
+        if start != prefix:
+            fail(f"parity: suffix case {slot} matched {start} tokens, want {prefix}")
+        if not mgr.admit(2 * slot + 1, len(ids2), prefix_blocks=blocks):
+            fail("parity: the pool refused a suffix case")
+        bucket2 = -(-len(ids2) // bs) * bs
+        full_ids = torch.full((1, bucket2), tok.pad_id, device="cuda")
+        full_ids[0, :len(ids2)] = torch.tensor(ids2)
+        full, _ = api.prefill(model, {"tokens": full_ids, "lengths": torch.tensor(
+            [len(ids2)], device="cuda")}, max_len=bucket2)
+        before = flash_attention_cuda.launches
+        suf, pool = api.prefill_suffix(
+            model, full_ids[:, start:], start,
+            torch.from_numpy(mgr.tables[2 * slot + 1]).cuda(), pool, bs,
+            lengths=torch.tensor([len(ids2) - start], device="cuda"))
+        if flash_attention_cuda.launches - before != cfg.n_layers:
+            fail("parity: suffix prefill did not launch flash_attention once a layer")
+        err = float((suf - full).abs().max())
+        worst = max(worst, err)
+        print(f"parity: suffix prefill start={start} S={bucket2 - start} "
+              f"(Skv={bucket2}) last-token logits vs full prefill max_abs_err="
+              f"{err:.6g}", flush=True)
+        if not err <= SUFFIX_ATOL:
+            fail(f"parity: suffix prefill logits {err} from full prefill's "
+                 f"(tolerance {SUFFIX_ATOL})")
+    print(f"parity (yi-6b full width, {MODEL_LAYERS} layers, float32, allow_tf32="
+          f"False, {len(texts)} prompts, {PARITY_NEW_TOKENS} new tokens): "
+          f"continuous == static and prefix on == prefix off with {ties} "
+          f"near-ties; suffix vs full prefill logits worst {worst:.6g} (tolerance "
+          f"{SUFFIX_ATOL}); {time.perf_counter() - t0:.1f} s; card: {card}", flush=True)
+    del model, pool
+    torch.cuda.empty_cache()
+
+
+def moe_model_check(work: Path, seed: int, card: str) -> None:
+    """moonshot-v1-16b-a3b at full width cut to ``MODEL_LAYERS`` layers, in
+    float32 with TF32 off, weights drawn on the card and copied to the
+    CPU: the router's top-k experts first (a flip passes only at a
+    probability near-tie, and then the logits are not comparable), then
+    prefill logits within ``MODEL_ATOL``/``MODEL_RTOL``, dropped
+    assignments on both sides, and one ``flash_attention`` launch a
+    layer."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models.moe import monitor
+    from repro_torch.models.transformer import init_lm, lm_prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              n_layers=MODEL_LAYERS, dtype="float32")
+    card_model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    cpu_model = copy.deepcopy(card_model).to("cpu")
+    toks, lens = prompt_batch(corpus_prompts(work, (255, 97)))
+    with monitor(cpu_model) as r_cpu:
+        want, _ = lm_prefill(cpu_model, cfg, toks, lengths=lens)
+    flash_attention_cuda.launches = 0
+    with monitor(card_model) as r_card:
+        got, _ = lm_prefill(card_model, cfg, toks.cuda(), lengths=lens.cuda())
+        torch.cuda.synchronize()
+    launches = flash_attention_cuda.launches
+    if not len(r_cpu) == len(r_card) == MODEL_LAYERS:
+        fail(f"moe check: routing of {len(r_cpu)} layers on the CPU, {len(r_card)} "
+             f"on the card, want {MODEL_LAYERS}")
+    flips, gaps = 0, []
+    for c_cpu, c_card in zip(r_cpu, r_card):
+        a = c_cpu.top_i.sort(dim=-1).values
+        b = c_card.top_i.cpu().sort(dim=-1).values
+        for t in (a != b).any(dim=-1).nonzero().flatten().tolist():
+            flips += len(set(a[t].tolist()) - set(b[t].tolist()))
+            gaps.append(float(c_cpu.margin[t]))
+    got = got.cpu()
+    drop_cpu = int(sum(c.dropped for c in r_cpu))
+    drop_card = int(sum(c.dropped for c in r_card))
+    if got.shape != (2, cfg.vocab_size) or not torch.isfinite(got).all():
+        fail(f"moe check: logits {tuple(got.shape)} not finite or misshaped")
+    err = float((got - want).abs().max())
+    routing = (f"router top-{cfg.experts_per_token} identical on all "
+               f"{toks.numel()} tokens x {MODEL_LAYERS} layers" if not flips else
+               f"{flips} assignments flipped, smallest top-k probability gap among "
+               f"them {min(gaps):.3g}")
+    print(f"model check: moonshot-v1-16b-a3b full width ({cfg.n_experts} experts of "
+          f"d_ff {cfg.d_ff}, top-{cfg.experts_per_token}, vocab {cfg.vocab_size}), "
+          f"{MODEL_LAYERS} layers, float32, allow_tf32=False; prompts "
+          f"{lens.tolist()} tokens; {routing}; dropped assignments CPU {drop_cpu}, "
+          f"card {drop_card}; card vs CPU prefill logits max_abs_err={err:.6g} (atol "
+          f"{MODEL_ATOL}, rtol {MODEL_RTOL}); flash_attention launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if launches != MODEL_LAYERS:
+        fail(f"moe check: {launches} flash_attention launches, want {MODEL_LAYERS}")
+    if flips:
+        if max(gaps) > MOE_NEAR_TIE:
+            fail(f"moe check: routing differs at a probability gap of {max(gaps):.3g}")
+        print("moe check: routing differs only at near-ties; the logits are not "
+              "comparable after a flip", flush=True)
+    else:
+        if drop_cpu != drop_card:
+            fail(f"moe check: dropped {drop_card} on the card, {drop_cpu} on the CPU")
+        if not torch.allclose(got, want, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+            fail(f"moe check: card logits differ from the CPU's (max {err})")
+    del card_model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def moe_serving_phase(work: Path, seed: int, card: str) -> int:
+    """moonshot-v1-16b-a3b at its published widths and full depth, bf16:
+    static serving through launch.serve.run (48 tensor-core
+    ``flash_attention`` launches a prefill), then 8 requests through
+    ``ContinuousEngine`` on the same weights (prefix sharing off for MoE).
+    Returns the ``flash_attention`` launches of both."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.serve import paged_spec
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import ContinuousEngine
+
+    t0 = time.perf_counter()
+    launches, engine, _ = lm_serving_phase(work, seed, "moonshot-v1-16b-a3b",
+                                           flash_attention_cuda, card,
+                                           max_len=CONT_MAX_LEN)
+    cfg, model = engine.cfg, engine.model
+    del engine
+    prompts = corpus_prompts(work, SERVE_LENGTHS)
+    spec = paged_spec(CONT_MAX_LEN, CONT_BLOCK, CONT_SLOTS, prefix_cache=False)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(cfg, model, spec,
+                           ServeConfig(max_new_tokens=SERVE_NEW_TOKENS,
+                                       max_len=spec.max_len),
+                           prefix_cache=True, device="cuda")
+    if eng._index is not None:
+        fail("continuous moonshot: prefix sharing is on for an MoE model")
+    flash_attention_cuda.launches = flash_attention_cuda.tc_launches = 0
+    t1 = time.perf_counter()
+    res = eng.generate(prompts)
+    wall = time.perf_counter() - t1
+    cont = flash_attention_cuda.launches
+    c = eng.counters()
+    n_tokens = sum(len(r.token_ids) for r in res)
+    peak = torch.cuda.max_memory_allocated()
+    if c["completed"] != len(prompts) or any(not r.token_ids for r in res):
+        fail(f"continuous moonshot: {c['completed']:.0f} of {len(prompts)} requests "
+             "completed")
+    if cont != cfg.n_layers * len(prompts) or flash_attention_cuda.tc_launches != cont:
+        fail(f"continuous moonshot: {cont} flash_attention launches "
+             f"({flash_attention_cuda.tc_launches} tensor-core), want "
+             f"{cfg.n_layers * len(prompts)}, all tensor-core")
+    print(f"continuous[moonshot-v1-16b-a3b]: all {len(prompts)} requests completed "
+          f"in {wall:.3f} s, {n_tokens} tokens = {n_tokens / wall:.1f} tokens/s; "
+          f"{slo_text(eng)}; peak_active {c['peak_active']:.0f}; pool "
+          f"{spec.n_blocks} blocks; flash_attention {cont} launches (all "
+          f"tensor-core); prefix sharing off (MoE); peak_allocated={peak} (own "
+          f"{peak - base}); {time.perf_counter() - t0:.1f} s for the phase; "
+          f"card: {card}", flush=True)
+    drain_and_check(eng, "continuous[moonshot-v1-16b-a3b]")
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches + cont
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one card")
     ap.add_argument("--seed", type=int, default=0)
@@ -1030,7 +1627,8 @@ def main() -> None:
     probe, hm = kernel_phase(args.seed)
     tani = tanimoto_phase(args.seed)
     attn = attention_case(FA_YI, args.seed)
-    attention_case(FA_GEMMA, args.seed)
+    for case in (FA_GEMMA, FA_MOONSHOT, *FA_SUFFIX):
+        attention_case(case, args.seed)
     ssd = ssd_scan_case(SSD_PREFILL, args.seed)
     ssd_scan_case(SSD_LONG, args.seed)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1050,6 +1648,7 @@ def main() -> None:
                 fail(f"{name} was not launched on the funnel's path")
         print(f"funnel launches: {json.dumps(funnel_launches)}", flush=True)
         hashed_phase_check(Path(work), summary, args.seed)
+        digest_launches = funnel_paper_phases(summary, Path(work), args.seed, card)
 
         launches = serving_phase(serve_index, Path(work), wrappers, card)
         t0 = time.perf_counter()
@@ -1057,14 +1656,30 @@ def main() -> None:
         lm_wrappers = {"flash_attention": flash_attention_cuda,
                        "ssd_scan": ssd_scan_cuda}
         model_phase(Path(work), args.seed, checks["dense"], lm_wrappers)
-        launches["flash_attention"] = lm_serving_phase(
+        fa_static, engine, static_tokens = lm_serving_phase(
             Path(work), args.seed, "yi-6b", flash_attention_cuda, card)
+        fa_cont = continuous_serving_phase(Path(work), engine, static_tokens, card)
+        del engine
+        torch.cuda.empty_cache()
+        continuous_parity_phase(Path(work), args.seed, card)
         print(f"LM phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         model_phase(Path(work), args.seed, checks["recurrent"], lm_wrappers)
-        launches["ssd_scan"] = lm_serving_phase(
+        launches["ssd_scan"], engine, _ = lm_serving_phase(
             Path(work), args.seed, "mamba2-1.3b", ssd_scan_cuda, card)
+        del engine
+        torch.cuda.empty_cache()
         print(f"SSM phases: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        moe_model_check(Path(work), args.seed, card)
+        fa_moe = moe_serving_phase(Path(work), args.seed, card)
+        print(f"MoE phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    hm_serving = launches["hash_mix"]
+    launches["hash_mix"] += digest_launches
+    launches["flash_attention"] = fa_static + fa_cont + fa_moe
+    print(f"launches by path: hash_mix serve_index {hm_serving} + digest_ids "
+          f"{digest_launches}; flash_attention yi-6b static {fa_static} + yi-6b "
+          f"continuous {fa_cont} + moonshot static and continuous {fa_moe}", flush=True)
 
     kernels = [
         dict(name="sorted_probe", route="cuda",

@@ -6,7 +6,9 @@ Async span read engine (coalesced spans)   → :mod:`repro_torch.core.reader`
 Span I/O backends (uring/thread/mmap)      → :mod:`repro_torch.core.iobackend`
 Batched verification (hash_mix on device)  → :mod:`repro_torch.core.verify`
 Record-content LRU cache                   → :mod:`repro_torch.core.cache`
+Baseline (naïve scan, Algorithm 1)         → :mod:`repro_torch.core.baseline`
 Identifier layer (InChI/InChIKey roles)    → :mod:`repro_torch.core.identifiers`
+Collision discovery (§VI, Eq. 4/5)         → :mod:`repro_torch.core.collisions`
 Multi-source intersection (Eq. 1)          → :mod:`repro_torch.core.intersect`
 Record substrate (SDF dialect)             → :mod:`repro_torch.core.records`
 Synthetic corpus (scale model of PubChem)  → :mod:`repro_torch.core.sdfgen`
@@ -17,6 +19,14 @@ Bloom-filter prefilter sidecars            → :mod:`repro_torch.core.bloom`
 Fingerprint bit-planes (similarity)        → :mod:`repro_torch.core.fingerprint`
 """
 
+from .baseline import BaselineResult, estimate_runtime, measure_scan_throughput, naive_scan
+from .collisions import (
+    CollisionReport,
+    birthday_expectation,
+    collisions_from_pairs,
+    scan_corpus,
+    scan_pairs_sorted,
+)
 from .cache import CacheStats, RecordCache
 from .extract import ExtractionResult, Mismatch, extract, extract_iter, plan_extraction
 from .iobackend import RecordView, SpanBackend, resolve_backend, uring_available

@@ -17,6 +17,20 @@ agree with the host paths on the same store:
 * the same holds on an index of keys hashed to ``hashed_bits(records)``
   bits, whose collisions seed real mismatches for the verifier to reject.
 
+Then the two host phases of the paper's narrative (``examples/
+integrate_databases.py`` in the reference package):
+
+* §VI's systematic collision scan at that key width: ``scan_corpus`` (the
+  dict path) must equal ``scan_pairs_sorted`` and ``collisions_from_pairs``
+  on the same (key, id) pairs, every mismatch the verifier rejected must
+  lie inside a colliding group, and Eq. 4's empirical rate is printed
+  beside Eq. 5's ``birthday_expectation``;
+* Algorithm 1's brute-force baseline: ``naive_scan`` of a few targets
+  must find the records extraction found; ``measure_scan_throughput``
+  (Table I) and a list-membership scan's comparison rate project Eq. 2/3's
+  runtime to PubChem's 176,929,690 records and 477,123 targets, printed
+  beside the indexed path's measured seconds and the ratio between them.
+
     PYTHONPATH=src python -m repro_torch.launch.funnel --records 100000 --seed 0 --device cuda
 
 The corpus is ``FILES`` files published as ``SHARDS`` shards.  The index
@@ -41,13 +55,23 @@ from ..core import (
     IndexStore,
     QueryStats,
     RecordStore,
+    birthday_expectation,
     build_index,
+    collisions_from_pairs,
+    estimate_runtime,
     extract,
     extract_property,
+    hashed_key,
     intersect_host,
     intersect_sorted,
+    iter_records,
+    measure_scan_throughput,
+    naive_scan,
+    scan_corpus,
+    scan_pairs_sorted,
 )
 from ..core.sdfgen import (
+    PROP_ID,
     PROP_XLOGP,
     CorpusSpec,
     db_id_list,
@@ -62,6 +86,12 @@ __all__ = ["funnel_spec", "run_funnel"]
 FILES = 8      # the reference corpus's default file count
 SHARDS = 16    # save_sharded's default shard count
 MISSES = 2000  # absent keys added to the lookup parity check
+# Eq. 2/3's projection: PubChem's records and the paper's targets
+# (ChEMBL ∩ eMolecules)
+PUBCHEM_RECORDS = 176_929_690
+PAPER_TARGETS = 477_123
+BASELINE_TARGETS = 4      # targets Algorithm 1 scans for, checked against extract
+CMP_TARGETS = 300         # list-membership targets of the comparison-rate scan
 
 _DEFAULT_SALT = CorpusSpec().salt
 
@@ -82,6 +112,103 @@ def hashed_bits(records: int) -> int:
     """Key width of the collision check: about one target in two shares
     its hashed key with another record."""
     return records.bit_length()
+
+
+def _id_pairs(store: RecordStore, bits: int):
+    """``(hashed_key, full_id)`` of every record, in file order."""
+    pairs = []
+    for path in store.files():
+        for _off, text in iter_records(path):
+            full_id = extract_property(text, PROP_ID)
+            if full_id is not None:
+                pairs.append((hashed_key(full_id, bits), full_id))
+    return pairs
+
+
+def collision_phase(store: RecordStore, bits: int, mismatches, log=print):
+    """§VI's systematic scan at ``bits``-bit keys, cross-checked; raises on
+    any disagreement.  Returns a summary."""
+    t = time.perf_counter()
+    rep = scan_corpus(store, key_bits=bits)
+    scan_s = time.perf_counter() - t
+    pairs = _id_pairs(store, bits)
+    keys, ids = [k for k, _ in pairs], [i for _, i in pairs]
+    if scan_pairs_sorted(keys, ids) != rep.colliding:
+        raise AssertionError(f"{bits}-bit keys: scan_pairs_sorted != scan_corpus")
+    if collisions_from_pairs(pairs) != rep.colliding:
+        raise AssertionError(f"{bits}-bit keys: collisions_from_pairs != scan_corpus")
+    # a target the corpus holds was fetched as another record of its
+    # colliding group, and each group serves one of its records right; a
+    # target the corpus lacks (the lists' extra ids) hit a record's key
+    held = set(ids)
+    inside = [m for m in mismatches if m.expected_id in held]
+    for m in inside:
+        group = rep.colliding.get(m.lookup_key, ())
+        if m.expected_id not in group or m.found_id not in group:
+            raise AssertionError(f"mismatch of key {m.lookup_key} outside its "
+                                 "colliding group")
+    if len(inside) > rep.n_affected_records - rep.n_colliding_keys:
+        raise AssertionError(f"{len(inside)} mismatches, more than the "
+                             "collisions can cause")
+    for m in mismatches:
+        if m.expected_id not in held and hashed_key(m.found_id, bits) != m.lookup_key:
+            raise AssertionError(f"mismatch of key {m.lookup_key}: the record "
+                                 "found has another key")
+    expected = birthday_expectation(rep.n_records, bits)
+    log(f"§VI scan at {bits}-bit keys: {rep.n_colliding_keys} colliding keys "
+        f"affecting {rep.n_affected_records} of {rep.n_records} records "
+        f"(scan_corpus == scan_pairs_sorted); Eq. 4 empirical rate "
+        f"{rep.empirical_rate:.4e}; Eq. 5 birthday expectation {expected:.1f}; "
+        f"of the verifier's {len(mismatches)} mismatches, {len(inside)} are "
+        f"targets fetched as another record of their colliding group and "
+        f"{len(mismatches) - len(inside)} are absent targets whose key a "
+        "record holds")
+    return {"key_bits": bits, "records": rep.n_records,
+            "colliding_keys": rep.n_colliding_keys,
+            "affected_records": rep.n_affected_records,
+            "empirical_rate": rep.empirical_rate,
+            "birthday_expectation": expected,
+            "mismatches": len(mismatches), "collision_mismatches": len(inside),
+            "scan_s": scan_s}
+
+
+def baseline_phase(store: RecordStore, targets, extracted, indexed_s: float,
+                   log=print):
+    """Algorithm 1 against the indexed path; raises if the brute-force scan
+    disagrees with ``extracted`` (extraction's records).  ``indexed_s`` is
+    the indexed path's measured seconds for all ``targets``.  Returns a
+    summary."""
+    held = [t for t in targets if t in extracted]
+    step = max(1, len(held) // BASELINE_TARGETS)
+    few = held[::step][:BASELINE_TARGETS]
+    res = naive_scan(store, few, membership="set")
+    if res.missing or ({t: r.strip() for t, r in res.records.items()}
+                       != {t: extracted[t].strip() for t in few}):
+        raise AssertionError("naive_scan disagrees with extract")
+    samples = measure_scan_throughput(store, n_files=3)
+    scan_rate = (sum(s.records for s in samples)
+                 / max(sum(s.seconds for s in samples), 1e-9))
+    cmp = naive_scan(store, list(targets[:CMP_TARGETS]), membership="list",
+                     max_files=1)
+    cmp_rate = cmp.comparisons / max(cmp.seconds, 1e-9)
+    ops, naive_s = estimate_runtime(PAPER_TARGETS, 1, PUBCHEM_RECORDS, cmp_rate)
+    _, set_s = estimate_runtime(PAPER_TARGETS, 1, PUBCHEM_RECORDS, scan_rate, "set")
+    per_target = indexed_s / max(len(targets), 1)
+    indexed_proj = per_target * PAPER_TARGETS
+    log(f"Algorithm 1: {len(few)} targets found by a {res.records_scanned}-record "
+        f"scan in {res.seconds:.3f} s (== extract); Table I scan rate "
+        f"{scan_rate:.0f} records/s over {len(samples)} files; Eq. 2/3 at "
+        f"{PUBCHEM_RECORDS} records x {PAPER_TARGETS} targets: {ops:.4e} "
+        f"comparisons at {cmp_rate:.4e}/s = {naive_s:.4e} s ({naive_s / 86400:.1f} "
+        f"days; one set-membership pass {set_s:.1f} s); indexed path "
+        f"{indexed_s:.3f} s for {len(targets)} targets, {per_target * 1e3:.4f} ms "
+        f"a target, {indexed_proj:.1f} s projected: {naive_s / indexed_proj:.1f}x")
+    return {"targets_checked": len(few), "scan_records_per_s": scan_rate,
+            "comparisons_per_s": cmp_rate, "projected_ops": ops,
+            "projected_naive_s": naive_s, "projected_set_scan_s": set_s,
+            "indexed_s": indexed_s, "indexed_per_target_s": per_target,
+            "projected_indexed_s": indexed_proj,
+            "ratio": naive_s / indexed_proj, "naive_s": res.seconds}
 
 
 def _lookup_once(store: IndexStore, keys, probe: str):
@@ -201,9 +328,17 @@ def run_funnel(
         if not h_res.mismatches:
             raise AssertionError(f"{bits}-bit keys seeded no mismatches")
         seconds["hashed_extract"] = time.perf_counter() - t
-        seconds["total"] = time.perf_counter() - t_all
         log(f"{bits}-bit keys: {len(h_res.mismatches)} mismatches rejected, "
             f"{h_res.found} verified, device == string")
+
+        t = time.perf_counter()
+        collisions = collision_phase(store, bits, h_res.mismatches, log)
+        seconds["collision_scan"] = time.perf_counter() - t
+        t = time.perf_counter()
+        baseline = baseline_phase(store, inter.ids, res.records,
+                                  seconds["extract"], log)
+        seconds["baseline"] = time.perf_counter() - t
+        seconds["total"] = time.perf_counter() - t_all
         return {
             "device": str(dev),
             "records": spec.n_records,
@@ -224,6 +359,8 @@ def run_funnel(
             "verify_batches": res.verify_batches,
             "hashed_key_bits": bits,
             "hashed_mismatches": len(h_res.mismatches),
+            "collisions": collisions,
+            "baseline": baseline,
             "seconds": seconds,
         }
     finally:

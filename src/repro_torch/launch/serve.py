@@ -1,20 +1,31 @@
-"""Serving launcher of the port's language models, static batch mode.
+"""Serving launcher of the port's language models.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full-config --seed 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --continuous --device cpu
 
 Builds the requested architecture (its reduced smoke config unless
 ``--full-config``) with random weights drawn on ``--device`` from
 ``--seed``, and serves the prompts through the static :class:`Engine`
 ``--repeats`` times, reporting prefill and decode timings.  ``--device``
 defaults to ``cuda``; the CPU is used only when asked for.
-``--continuous`` (the reference's paged-KV continuous batching) is not
-ported yet.  :func:`run` drives it in-process and returns a summary.
+
+``--continuous`` serves through the paged-KV continuous-batching engine
+instead (:mod:`repro_torch.serve.scheduler`): the prompts are submitted as
+independent requests that admit into ``--max-slots`` decode lanes backed
+by ``--block-size`` KV blocks (the pool sized as the reference sizes it:
+``max_slots · m`` blocks, ``m`` more of headroom for the prefix cache, and
+2), and the report adds the TTFT/inter-token SLO percentiles and the
+prefix-cache counters.  Prompts that share a block-aligned prefix share
+its KV through the prefix cache (``--no-prefix-cache`` turns sharing off;
+greedy tokens are the same either way).  :func:`run` drives either mode
+in-process and returns a summary.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -24,6 +35,8 @@ from ..configs import ARCH_NAMES, get_config
 from ..device import resolve_device
 from ..models.registry import build_model
 from ..serve.engine import Engine, ServeConfig
+from ..serve.kvcache import PagedCacheSpec, blocks_for
+from ..serve.scheduler import ContinuousEngine
 
 __all__ = ["build_parser", "main", "run"]
 
@@ -44,7 +57,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--repeats", type=int, default=1,
                     help="serve the prompts this many times")
     ap.add_argument("--continuous", action="store_true",
-                    help="paged-KV continuous batching (not ported yet)")
+                    help="serve through the paged-KV continuous-batching engine")
+    ap.add_argument("--max-slots", type=int, default=8,
+                    help="decode batch width of the continuous engine")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV rows per paged-cache block")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="share block-aligned prompt prefixes across requests "
+                         "(continuous mode; the same greedy tokens either way)")
     ap.add_argument("--prompts", nargs="*", default=DEFAULT_PROMPTS)
     return ap
 
@@ -53,11 +74,6 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
     """Serve as ``args`` says (see :func:`build_parser`); returns a summary
     with every run's tokens and timings, and the ``engine`` itself for
     callers that go on serving (or profiling) the same model."""
-    if args.continuous:
-        raise SystemExit(
-            "--continuous: the paged-KV continuous-batching engine is not "
-            "ported yet (ROADMAP Queue 1 item 6b); drop --continuous"
-        )
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full_config:
@@ -72,6 +88,19 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
         torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    summary = {
+        "arch": args.arch,
+        "config": "full" if args.full_config else "smoke",
+        "n_layers": cfg.n_layers,
+        "dtype": cfg.dtype,
+        "device": str(dev),
+        "batch": len(args.prompts),
+        "prompt_tokens": [len(p.encode("utf-8")) + 1 for p in args.prompts],
+        "init_s": init_s,
+        "weight_bytes": weight_bytes,
+    }
+    if args.continuous:
+        return {**summary, **_run_continuous(args, cfg, model, dev)}
     eng = Engine(cfg, model, ServeConfig(max_new_tokens=args.max_new_tokens,
                                          max_len=args.max_len), device=dev)
     print(f"serving {len(args.prompts)} prompts on {args.arch} "
@@ -92,20 +121,69 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
             "decode_tokens_per_s": len(res) * steps / decode_s if decode_s > 0 else 0.0,
             "token_ids": [r.token_ids for r in res],
         })
-    return {
-        "arch": args.arch,
-        "config": "full" if args.full_config else "smoke",
-        "n_layers": cfg.n_layers,
-        "dtype": cfg.dtype,
-        "device": str(dev),
-        "batch": len(args.prompts),
-        "prompt_tokens": [len(p.encode("utf-8")) + 1 for p in args.prompts],
-        "init_s": init_s,
-        "weight_bytes": weight_bytes,
-        "kv_cache_bytes": eng.kv_cache_bytes,
-        "runs": runs,
-        "engine": eng,
-    }
+    return {**summary, "kv_cache_bytes": eng.kv_cache_bytes, "runs": runs,
+            "engine": eng}
+
+
+def paged_spec(max_len: int, block_size: int, max_slots: int,
+               prefix_cache: bool) -> PagedCacheSpec:
+    """The reference launcher's pool: ``m = blocks_for(max_len)`` blocks a
+    slot, ``max_slots · m``, ``m`` more of headroom when the prefix cache
+    is on (its entries stay resident between requests), and the trash
+    block plus one."""
+    m = blocks_for(max_len, block_size)
+    headroom = m if prefix_cache else 0
+    return PagedCacheSpec(n_blocks=max_slots * m + headroom + 2,
+                          block_size=block_size, max_slots=max_slots,
+                          max_blocks_per_seq=m)
+
+
+def _run_continuous(args, cfg, model, dev) -> Dict[str, object]:
+    api = build_model(cfg)
+    if not api.supports_paged:
+        raise SystemExit(
+            f"--arch {args.arch} has no paged-KV decode path (windowed "
+            "attention or non-transformer family); drop --continuous")
+    spec = paged_spec(args.max_len, args.block_size, args.max_slots,
+                      args.prefix_cache)
+    eng = ContinuousEngine(
+        cfg, model, spec,
+        ServeConfig(max_new_tokens=args.max_new_tokens, max_len=spec.max_len),
+        prefix_cache=args.prefix_cache, device=dev)
+    print(f"serving {len(args.prompts)} prompts on {args.arch} "
+          f"({'full' if args.full_config else 'smoke'} config, {cfg.n_layers} "
+          f"layers, {cfg.dtype}, {dev}, continuous: {args.max_slots} slots x "
+          f"{spec.max_blocks_per_seq} blocks of {args.block_size}, pool "
+          f"{spec.n_blocks} blocks)…")
+    runs: List[Dict[str, object]] = []
+    for _ in range(args.repeats):
+        t0 = time.perf_counter()
+        res = eng.generate(args.prompts)
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(res):
+            print(f"[{i}] prompt {r.prompt_len} tokens, prefill "
+                  f"{r.prefill_s * 1e3:.1f} ms, {r.tokens_per_s:.1f} tok/s → "
+                  f"{r.text[:60]!r}")
+        n_tokens = sum(len(r.token_ids) for r in res)
+        runs.append({"wall_ms": wall * 1e3, "tokens": n_tokens,
+                     "tokens_per_s": n_tokens / wall if wall > 0 else 0.0,
+                     "token_ids": [r.token_ids for r in res]})
+    slo = eng.slo_ms()
+    print(f"slo: ttft p50 {slo['ttft_p50_ms']:.1f} ms / p99 "
+          f"{slo['ttft_p99_ms']:.1f} ms, itl p50 {slo['itl_p50_ms']:.2f} ms / "
+          f"p99 {slo['itl_p99_ms']:.2f} ms")
+    c = eng.counters()
+    if "pfx_entries" in c:
+        print(f"prefix cache: hit rate {c['prefix_hit_rate']:.2f} "
+              f"({c['prefix_hits']:.0f}/{c['prefix_hits'] + c['prefix_misses']:.0f}), "
+              f"{c['prefill_tokens_saved']:.0f} prefill tokens saved, "
+              f"{c['pfx_entries']:.0f} entries resident")
+    else:
+        print("prefix cache: off")
+    eng.check()
+    eng.close()
+    return {"continuous": True, "spec": dataclasses.asdict(spec), "runs": runs,
+            "slo": slo, "counters": c, "engine": eng}
 
 
 def main(argv: Optional[list] = None) -> None:

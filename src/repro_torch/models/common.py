@@ -18,6 +18,12 @@ Conventions
   accumulation and a float32 result, masked softmax, product with V.  It
   updates the cache in place (``index_put_`` at each row's slot), where
   the reference rebuilds it functionally and donates the old one.
+* The paged cache (continuous batching) is one pool ``(Hkv, n_blocks *
+  block_size, Dh)`` per layer shared by every batch slot through block
+  tables; ``attention_decode_paged`` writes the new token's row into the
+  pool in place, gathers each slot's blocks (``paged_view``) and runs the
+  decode math above on the view, so it equals the contiguous cache's
+  bit for bit whenever the view is as long.
 * ``init_*`` draw the reference's distributions from a ``torch.Generator``
   on the target device; the numbers differ from ``jax.random``'s, so
   parity runs carry the reference's weights across (``models/weights.py``).
@@ -43,6 +49,7 @@ __all__ = [
     "apply_rope",
     "attention_apply",
     "attention_decode",
+    "attention_decode_paged",
     "attention_init",
     "compute_dtype",
     "dense_init",
@@ -51,6 +58,9 @@ __all__ = [
     "last_token_logits",
     "mlp_apply",
     "mlp_init",
+    "paged_view",
+    "paged_write_rows",
+    "param_count",
     "rmsnorm",
     "rmsnorm_init",
     "rope_freqs",
@@ -216,6 +226,19 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def _decode_ctx(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """q (B, H, Dh) against a (B, Hkv, S, Dh) cache with ``valid`` (B, S)
+    → context (B, Hkv, G, Dh) float32: the grouped products."""
+    b, h, dh = q.shape
+    hkv = k_cache.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, dh).to(k_cache.dtype)
+    s = _matmul_f32(qg, k_cache.transpose(2, 3)) / math.sqrt(dh)  # (B,Hkv,G,S)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return _matmul_f32(p.to(v_cache.dtype), v_cache)               # (B,Hkv,G,Dh)
+
+
 def attention_decode(
     attn: Attention,
     cfg: ModelConfig,
@@ -232,8 +255,7 @@ def attention_decode(
     end is clamped to the last one, as the reference's
     ``dynamic_update_slice`` clamps it."""
     b = x.shape[0]
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g = h // hkv
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
     q, k, v = _qkv(attn, cfg, x)                 # (B,1,H,Dh) / (B,1,Hkv,Dh)
     if use_rope:
         p1 = pos[:, None]
@@ -253,11 +275,82 @@ def attention_decode(
     else:
         # ring buffer: slot s holds token t = pos - ((pos - s) mod W)
         valid = pos[:, None] - (pos[:, None] - idx) % window >= 0
-    qg = q[:, 0].reshape(b, hkv, g, dh).to(k_cache.dtype)
-    s = _matmul_f32(qg, k_cache.transpose(2, 3)) / math.sqrt(dh)  # (B,Hkv,G,S)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    ctx = _matmul_f32(p.to(v_cache.dtype), v_cache)                 # (B,Hkv,G,Dh)
+    ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid)
+    ctx = ctx.reshape(b, h * dh).to(compute_dtype(cfg))
+    return (ctx @ attn.wo)[:, None, :], cache
+
+
+# ---------------------------------------------------------------------------
+# paged (block) KV cache
+# ---------------------------------------------------------------------------
+#
+# One pool (Hkv, P, Dh) per layer with P = n_blocks * block_size; block i
+# owns rows [i*bs, (i+1)*bs).  A slot's block table row maps logical
+# position t to pool row ``table[t // bs] * bs + t % bs``.  Block 0 is the
+# trash block: unallocated table entries point at it, writes from inactive
+# slots land there, and reads from it are always masked (``idx <= pos``).
+
+
+def paged_view(pool: torch.Tensor, tables: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Gather per-slot contiguous KV views out of the block pool: pool
+    (Hkv, P, Dh), tables (B, M) → (B, Hkv, M * bs, Dh), whatever number of
+    blocks a slot really owns."""
+    b, m = tables.shape
+    flat = (tables.long()[:, :, None] * block_size
+            + torch.arange(block_size, device=tables.device)[None, None, :]
+            ).reshape(b, m * block_size)
+    return pool[:, flat].transpose(0, 1)
+
+
+def paged_write_rows(
+    pool: torch.Tensor,        # (Hkv, P, Dh)
+    rows: torch.Tensor,        # (Hkv, S, Dh) values of logical positions start..start+S-1
+    table_row: torch.Tensor,   # (M,) block table of the target slot
+    block_size: int,
+    start: int = 0,
+) -> torch.Tensor:
+    """Scatter S contiguous logical positions of one slot into the pool, in
+    place, and return it.  ``start`` offsets the logical positions (suffix
+    prefill writes after adopted prefix blocks and leaves them untouched).
+    Positions past the slot's allocated blocks resolve to the trash block;
+    positions past the table raise."""
+    t = start + torch.arange(rows.shape[1], device=pool.device)
+    flat = table_row.long()[t // block_size] * block_size + t % block_size
+    pool[:, flat] = rows.to(pool.dtype)
+    return pool
+
+
+def attention_decode_paged(
+    attn: Attention,
+    cfg: ModelConfig,
+    x: torch.Tensor,                    # (B, 1, D)
+    pos: torch.Tensor,                  # (B,) absolute position of the new token
+    cache: Dict[str, torch.Tensor],     # {"k","v"}: (Hkv, P, Dh) block pools
+    tables: torch.Tensor,               # (B, M) block tables
+    block_size: int,
+    use_rope: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode against the paged pool, write-then-gather: the new
+    token's K/V goes to its slot's block at ``pos`` (in place), the slot's
+    blocks are gathered into a (B, Hkv, M * bs, Dh) view, and the math is
+    :func:`attention_decode`'s, with the same masking constant."""
+    b = x.shape[0]
+    h, dh = cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(attn, cfg, x)                 # (B,1,H,Dh) / (B,1,Hkv,Dh)
+    if use_rope:
+        p1 = pos[:, None]
+        q = apply_rope(q, p1, cfg.rope_theta)
+        k = apply_rope(k, p1, cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    flat_w = tables.long()[rows, pos // block_size] * block_size + pos % block_size
+    k_pool, v_pool = cache["k"], cache["v"]
+    k_pool[:, flat_w] = k[:, 0].transpose(0, 1).to(k_pool.dtype)
+    v_pool[:, flat_w] = v[:, 0].transpose(0, 1).to(v_pool.dtype)
+    # contiguous, as the dense cache is, so the products take the same path
+    k_cache = paged_view(k_pool, tables, block_size).contiguous()
+    v_cache = paged_view(v_pool, tables, block_size).contiguous()
+    valid = torch.arange(k_cache.shape[2], device=x.device)[None, :] <= pos[:, None]
+    ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid)
     ctx = ctx.reshape(b, h * dh).to(compute_dtype(cfg))
     return (ctx @ attn.wo)[:, None, :], cache
 
@@ -335,3 +428,8 @@ def last_token_logits(
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         last = hidden[rows, lengths.long() + offset - 1]
     return unembed_logits(embed, cfg, last[:, None])[:, 0]
+
+
+def param_count(model: nn.Module) -> int:
+    """Number of parameter elements of ``model``."""
+    return int(sum(p.numel() for p in model.parameters()))

@@ -7,23 +7,33 @@ the ``T·k`` assignments are sorted by expert (stable, so each expert's
 tokens keep their order), an assignment's rank inside its expert is its
 slot, and ranks at or past the capacity ``C`` are dropped (switch-style)
 and counted.  Each expert runs a dense SwiGLU over its ``(C, D)`` slot
-buffer; the combine adds each slot's weighted output back into its
-token's row.
+buffer; the combine sums, for each token, the weighted outputs of its k
+assignments (a dropped one adds zero).
 
 ``C = max(1, int(capacity_factor · T · k / E))`` over all ``T = B·S``
 tokens, pads included, as the reference counts them; ``no_drop=True``
 sizes ``C = T`` so no token can overflow (the decode path).  The
-reference's ``.at[].set`` into the discard row is ``index_put_``, and its
-``.at[].add`` combine ``index_add_`` on a ``(T + 1, D)`` buffer.
+reference's ``.at[].set`` into the discard row is ``index_put_``.  Its
+``.at[].add`` combine is a gather of each token's k slots, summed over the
+k in rank order: a scatter-add (``index_add_``) adds in the card's atomic
+order, so the same batch could round to other bf16 outputs run to run;
+the gather gives one answer.
 
 The expert-parallel path over a mesh (``shard_map`` in the reference) is
 ROADMAP Queue 1 item 10: :func:`moe_apply` raises when given a mesh.
+
+Dropped assignments are monitoring, as in the reference: inside
+``with monitor(model) as calls:`` every :func:`moe_apply` of one of
+``model``'s MoE layers appends a :class:`Routed` record of the routing it
+dispatched (0-d device tensors, read by the caller after the work) to
+``calls``.  Outside it nothing is kept and nothing synchronises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Optional, Tuple
+from typing import Any, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +42,15 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .common import _param, compute_dtype, dense_init
 
-__all__ = ["MoE", "moe_apply", "moe_init"]
+__all__ = ["MoE", "Routed", "moe_apply", "moe_init", "monitor", "route"]
+
+
+class Routed(NamedTuple):
+    """One :func:`moe_apply` call as dispatched, for :func:`monitor`."""
+
+    dropped: torch.Tensor  # 0-d: assignments past the capacity
+    top_i: torch.Tensor    # (T, k) the experts each token was sent to
+    margin: torch.Tensor   # (T,) k-th minus (k+1)-th router probability
 
 
 class MoE(nn.Module):
@@ -42,6 +60,24 @@ class MoE(nn.Module):
     def __init__(self, router, wg, wu, wd):
         super().__init__()
         self.router, self.wg, self.wu, self.wd = map(_param, (router, wg, wu, wd))
+        self.monitor: Optional[List[Routed]] = None  # set by monitor()
+
+
+@contextlib.contextmanager
+def monitor(model: nn.Module) -> Iterator[List[Routed]]:
+    """Collect a :class:`Routed` record of every :func:`moe_apply` call of
+    ``model``'s MoE layers (``model`` itself included) inside the ``with``
+    block, in call order; ``int(sum(c.dropped for c in calls))`` is the
+    total dropped."""
+    calls: List[Routed] = []
+    layers = [m for m in model.modules() if isinstance(m, MoE)]
+    for m in layers:
+        m.monitor = calls
+    try:
+        yield calls
+    finally:
+        for m in layers:
+            m.monitor = None
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator) -> MoE:
@@ -56,6 +92,15 @@ def moe_init(cfg: ModelConfig, generator: torch.Generator) -> MoE:
     )
 
 
+def route(xf: torch.Tensor, router: torch.Tensor, k: int):
+    """Tokens ``xf (T, D)`` → (softmax probabilities (T, E) float32, the
+    top-k weights renormalised over the k (T, k), the top-k experts
+    (T, k))."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)   # (T, E)
+    top_w, top_i = torch.topk(probs, k, dim=-1)                  # (T, k)
+    return probs, top_w / torch.sum(top_w, dim=-1, keepdim=True), top_i
+
+
 def _local_moe(
     x_l: torch.Tensor,       # (B, S, D)
     router: torch.Tensor,    # (D, E)
@@ -66,6 +111,7 @@ def _local_moe(
     cfg: ModelConfig,
     e0: int,                 # first expert id held here
     capacity: int,
+    routed: Optional[Tuple[torch.Tensor, ...]] = None,  # route()'s, if taken
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dispatch → per-expert SwiGLU → combine → (y (B, S, D), aux loss,
     dropped assignments)."""
@@ -78,10 +124,7 @@ def _local_moe(
     dev = x_l.device
     xf = x_l.reshape(t, d)
 
-    logits = xf.float() @ router.float()                         # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_i = torch.topk(probs, k, dim=-1)                  # (T, k)
-    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)       # renorm
+    probs, top_w, top_i = route(xf, router, k) if routed is None else routed
 
     # --- capacity-bounded ranking ------------------------------------------
     flat_i = top_i.reshape(-1)                                   # (T*k,)
@@ -114,9 +157,13 @@ def _local_moe(
     ye = torch.bmm(g * u, wd)
     ye = ye * w_buf[..., None].to(cdt)
 
-    y = torch.zeros((t + 1, d), dtype=cdt, device=dev)
-    y.index_add_(0, tok_buf.reshape(-1), ye.reshape(-1, d))
-    y = y[:t]
+    # each assignment's row of the flattened slots, in (token, rank) order;
+    # the zero row E_l * C when it was dropped or is another shard's
+    dest = torch.where(keep, slot_e * capacity + slot_c, el * capacity)
+    src = torch.empty_like(dest)
+    src[order] = dest
+    yflat = torch.cat([ye.reshape(el * capacity, d), ye.new_zeros((1, d))], dim=0)
+    y = yflat[src].view(t, k, d).sum(dim=1)
 
     # --- aux telemetry -------------------------------------------------------
     counts = torch.zeros((e,), dtype=torch.float32, device=dev)
@@ -148,7 +195,14 @@ def moe_apply(m: MoE, cfg: ModelConfig, x: torch.Tensor, no_drop: bool = False,
             "moe_apply over a mesh (expert parallelism) is not ported yet "
             "(ROADMAP Queue 1 item 10, the distribution layer)"
         )
-    b, s, _ = x.shape
-    y, aux, _ = _local_moe(x, m.router, m.wg, m.wu, m.wd, cfg=cfg, e0=0,
-                           capacity=capacity_for(cfg, b * s, no_drop))
+    b, s, d = x.shape
+    k = cfg.experts_per_token
+    routed = route(x.reshape(b * s, d), m.router, k)
+    y, aux, dropped = _local_moe(x, m.router, m.wg, m.wu, m.wd, cfg=cfg, e0=0,
+                                 capacity=capacity_for(cfg, b * s, no_drop),
+                                 routed=routed)
+    if m.monitor is not None:
+        probs, _, top_i = routed
+        top = torch.topk(probs, k + 1, dim=-1).values
+        m.monitor.append(Routed(dropped, top_i, top[:, k - 1] - top[:, k]))
     return y, aux

@@ -10,12 +10,22 @@ serving engine programs against:
   cache_init(batch, max_len, device="cuda") → cache
 
 ``batch["lengths"]`` (B,) makes prefill read each sequence's true last
-prompt position.  The dense, VLM, SSM (mamba2) and hybrid (Jamba)
-families are ported.  ``loss`` (training, ROADMAP Queue 1 item 7) and the
-paged-cache entry points of continuous batching (item 6b) are ``None``
-until their slices; the transformer's MoE family (item 5b: wiring
-``moe_apply`` into its decoder layers) and encoder-decoder (item 9) raise
+prompt position.  The dense, MoE, VLM, SSM (mamba2) and hybrid (Jamba)
+families are ported; ``loss`` (training, ROADMAP Queue 1 item 7) is
+``None`` until its slice, and encoder-decoder (item 9) raises
 ``NotImplementedError``.
+
+Transformer stacks without a sliding-window layer also expose the paged
+cache of continuous batching (``None`` elsewhere: gemma3, the SSM and
+hybrid families; ``supports_paged`` says which):
+
+  paged_cache_init(n_blocks, block_size, device="cuda") → cache
+  decode_step_paged(model, token, pos, tables, cache, block_size)
+                                                   → (logits, cache)
+  paged_prefill_write(cache, prefill_cache, table_row, block_size, start=0)
+                                                   → cache
+  prefill_suffix(model, tokens, start, table_row, cache, block_size,
+                 lengths=None)                     → (logits, cache)
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ class ModelApi:
     decode_step: Callable
     cache_init: Callable
     loss: Optional[Callable] = None
-    # paged-KV serving contract (continuous batching); None until ported
+    # paged-KV serving contract (continuous batching); None where unsupported
     paged_cache_init: Optional[Callable] = None
     decode_step_paged: Optional[Callable] = None
     paged_prefill_write: Optional[Callable] = None
@@ -57,12 +67,36 @@ def _transformer_api(cfg: ModelConfig) -> ModelApi:
             lengths=batch.get("lengths"),
         )
 
+    # the block pool holds global-attention layers only (no sliding-window
+    # ring buffers): gated here so engines can ask instead of raising
+    paged = not any(w is not None for w in transformer.layer_windows(cfg))
     return ModelApi(
         cfg=cfg,
         init=lambda generator, device="cuda": transformer.init_lm(cfg, generator, device),
         prefill=prefill,
         decode_step=lambda m, t, pos, c: transformer.lm_decode_step(m, cfg, t, pos, c),
         cache_init=lambda b, m, device="cuda": transformer.lm_cache_init(cfg, b, m, device),
+        paged_cache_init=(
+            (lambda n, bs, device="cuda":
+             transformer.lm_paged_cache_init(cfg, n, bs, device))
+            if paged else None
+        ),
+        decode_step_paged=(
+            (lambda m, t, pos, tb, c, bs:
+             transformer.lm_decode_step_paged(m, cfg, t, pos, tb, c, bs))
+            if paged else None
+        ),
+        paged_prefill_write=(
+            (lambda c, pc, row, bs, start=0:
+             transformer.lm_paged_prefill_write(cfg, c, pc, row, bs, start=start))
+            if paged else None
+        ),
+        prefill_suffix=(
+            (lambda m, t, start, row, c, bs, lengths=None:
+             transformer.lm_prefill_suffix(m, cfg, t, start, row, c, bs,
+                                           lengths=lengths))
+            if paged else None
+        ),
     )
 
 
@@ -87,14 +121,12 @@ def _recurrent_api(cfg: ModelConfig) -> ModelApi:
 
 
 _LATER = {
-    "moe": ("item 5b (wiring models/moe.py's moe_apply into the transformer's "
-            "DecoderLayer)"),
     "encdec": "item 9 (models/encdec.py)",
 }
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return _transformer_api(cfg)
     if cfg.family in _RECURRENT:
         return _recurrent_api(cfg)

@@ -3,7 +3,8 @@
 The reference keeps an LM's parameters as a nested dict whose flattened
 names are ``embed/table``, ``embed/unembed``, ``final_norm`` and, stacked
 over the scanned layer axis, ``blocks/ln1``, ``blocks/ln2``,
-``blocks/attn/{wq,wk,wv,wo,bq,bk,bv}`` and ``blocks/mlp/{wg,wu,wd}``: one
+``blocks/attn/{wq,wk,wv,wo,bq,bk,bv}`` and ``blocks/mlp/{wg,wu,wd}`` (on
+the MoE family ``blocks/moe/{router,wg,wu,wd}`` in its place): one
 leading axis ``(n_layers, ...)``, or two for gemma3's local/global blocks
 ``(n_steps, local_block, ...)``, layer ``step * local_block + i``.  Those
 are the names of a checkpoint the reference writes
@@ -11,7 +12,8 @@ are the names of a checkpoint the reference writes
 
 :func:`params_from_reference` un-stacks them into an :class:`~.transformer.LM`
 on ``device``, each matrix cast once to the compute dtype (the values the
-reference's ``.astype(cdt)`` gives at each use), norm weights kept float32.
+reference's ``.astype(cdt)`` gives at each use), norm weights and the
+router kept float32.
 :func:`params_to_reference` is the inverse, float32 numpy arrays in the
 reference's stacked layout.
 
@@ -43,7 +45,7 @@ from .hybrid import Hybrid, HybridLayer, _layout
 from .mamba2 import _NAMES as _MAMBA, Mamba2
 from .moe import MoE
 from .ssm import SSM, SSMLayer
-from .transformer import LM, DecoderLayer, _n_scan, _require_dense
+from .transformer import LM, DecoderLayer, _is_moe_layer, _n_scan
 
 __all__ = ["params_from_reference", "params_to_reference"]
 
@@ -69,7 +71,6 @@ def params_from_reference(cfg: ModelConfig, named: Mapping[str, Array],
                           device: DeviceLike = "cuda"):
     """The port's model (LM, SSM or Hybrid, by ``cfg.family``) holding the
     reference's parameters ``named``."""
-    _require_dense(cfg)
     dev = resolve_device(device)
     missing = [n for n in _names(cfg) if n not in named]
     if missing:
@@ -167,18 +168,25 @@ def _lm_from_reference(cfg: ModelConfig, named, dev) -> LM:
         t = _stacked(named, name, lead)
         return t.reshape(cfg.n_layers, *t.shape[len(lead):])
 
+    moe = _is_moe_layer(cfg)
     blk = {n: stacked(f"blocks/attn/{n}") for n in _ATTN}
     if cfg.qkv_bias:
         blk.update({n: stacked(f"blocks/attn/{n}") for n in _BIAS})
-    blk.update({n: stacked(f"blocks/mlp/{n}") for n in _MLP})
+    ffn_names = _MOE if moe else _MLP
+    ffn_blk = {n: stacked(f"blocks/{'moe' if moe else 'mlp'}/{n}") for n in ffn_names}
     ln1, ln2 = stacked("blocks/ln1"), stacked("blocks/ln2")
     layers = []
     for i in range(cfg.n_layers):
         bias = [mat(blk[n][i]) if cfg.qkv_bias else None for n in _BIAS]
         attn = Attention(*(mat(blk[n][i]) for n in _ATTN), *bias)
-        mlp = SwiGLU(*(mat(blk[n][i]) for n in _MLP))
+        if moe:
+            ffn = dict(moe=MoE(*(ffn_blk[n][i].to(dev, cdt if n in _MOE_CAST
+                                                  else torch.float32)
+                                 for n in _MOE)))
+        else:
+            ffn = dict(mlp=SwiGLU(*(mat(ffn_blk[n][i]) for n in _MLP)))
         layers.append(DecoderLayer(RMSNorm(ln1[i].to(dev), cfg.norm_eps), attn,
-                                   RMSNorm(ln2[i].to(dev), cfg.norm_eps), mlp))
+                                   RMSNorm(ln2[i].to(dev), cfg.norm_eps), **ffn))
     embed, final = _embed(cfg, named, dev)
     return LM(cfg, embed, layers, final)
 
@@ -197,8 +205,9 @@ def _names(cfg: ModelConfig):
         names += [f"blocks/moe/{n}" for n in _MOE] if moe_pos else []
         names += [f"blocks/mlp/{n}" for n in _MLP] if mlp_pos else []
         return names
-    return names + ["blocks/ln1", "blocks/ln2"] + attn + [
-        f"blocks/mlp/{n}" for n in _MLP]
+    ffn = ([f"blocks/moe/{n}" for n in _MOE] if _is_moe_layer(cfg)
+           else [f"blocks/mlp/{n}" for n in _MLP])
+    return names + ["blocks/ln1", "blocks/ln2"] + attn + ffn
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -232,8 +241,12 @@ def params_to_reference(model) -> Dict[str, np.ndarray]:
     out["blocks/ln2"] = stack(lambda l: l.ln2.weight)
     for n in _ATTN + (_BIAS if cfg.qkv_bias else ()):
         out[f"blocks/attn/{n}"] = stack(lambda l, n=n: getattr(l.attn, n))
-    for n in _MLP:
-        out[f"blocks/mlp/{n}"] = stack(lambda l, n=n: getattr(l.mlp, n))
+    if _is_moe_layer(cfg):
+        for n in _MOE:
+            out[f"blocks/moe/{n}"] = stack(lambda l, n=n: getattr(l.moe, n))
+    else:
+        for n in _MLP:
+            out[f"blocks/mlp/{n}"] = stack(lambda l, n=n: getattr(l.mlp, n))
     return out
 
 

@@ -43,6 +43,7 @@ class ServeConfig:
     max_len: int = 512
     greedy: bool = True
     temperature: float = 1.0
+    top_k: int = 0              # 0 = no top-k cut (read by the continuous sampler)
     seed: int = 0
     # the host polls the all-done flag every ``sync_every`` decode steps
     # (1 = every step); the token buffer transfers once per generate

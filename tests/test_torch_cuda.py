@@ -385,6 +385,19 @@ def test_lm_smoke_prefill_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
 
 
+def test_lm_smoke_continuous_serving_on_the_card(cuda):
+    """``launch.serve --continuous`` on the card by default: every prompt
+    served, the pool's books balanced (the launcher checks and closes)."""
+    from repro_torch.launch import serve
+
+    out = serve.run(serve.build_parser().parse_args(
+        ["--continuous", "--max-new-tokens", "6", "--max-len", "64",
+         "--prompts", "InChI=1S/C12H22O2/", "C", "x" * 50]))
+    assert out["device"].startswith("cuda") and out["continuous"]
+    assert out["counters"]["completed"] == 3
+    assert all(1 <= len(t) <= 6 for t in out["runs"][0]["token_ids"])
+
+
 def test_lm_smoke_serving_on_the_card(cuda):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.launch import serve
@@ -487,3 +500,183 @@ def test_mamba2_smoke_serving_on_the_card(cuda):
     assert out["device"].startswith("cuda")
     assert out["runs"][0]["token_ids"] == out["runs"][1]["token_ids"]
     assert ssd_scan_cuda.launches == before + 2 * out["n_layers"]
+
+
+# (start, S, Hq, Hkv): suffix prefill's attention, queries the last S of
+# start + S keys (``off = start``), start a multiple of the block size (16)
+# and not of the tensor-core tile (128) but for 1,024 and 1,536; the last
+# three at yi-6b's heads (served: start 1,536 and S 512, or 1,024 and 48)
+FA_SUFFIX_CASES = [(16, 32, 4, 2), (48, 64, 4, 2), (48, 160, 4, 2),
+                   (1024, 256, 4, 2), (1024, 16, 4, 2), (1536, 512, 32, 4),
+                   (1024, 48, 32, 4), (1040, 208, 32, 4)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("start,s,hq,hkv", FA_SUFFIX_CASES)
+def test_flash_attention_at_suffix_prefill_shapes(cuda, dtype, start, s, hq, hkv):
+    """q (1, Hq, S, D) of the model's layout against k, v gathered from a
+    block pool (``paged_view``), as ``lm_prefill_suffix`` calls it."""
+    from repro_torch.models.common import paged_view
+
+    dt = getattr(torch, dtype)
+    d, bs = 128, 16
+    n_blocks = (start + s) // bs
+    rng = np.random.default_rng(start + s)
+    q = torch.from_numpy(rng.standard_normal((1, s, hq, d), np.float32))
+    q = q.to(cuda, dt).transpose(1, 2)
+    pools = [torch.from_numpy(rng.standard_normal((hkv, (n_blocks + 3) * bs, d),
+                                                  np.float32)).to(cuda, dt)
+             for _ in range(2)]
+    table = torch.from_numpy(rng.permutation(n_blocks + 3)[:n_blocks]).to(cuda)
+    k, v = (paged_view(p, table[None], bs) for p in pools)
+    assert k.shape == (1, hkv, start + s, d)
+    _fa_check(q, k, v, True, None,
+              "cuda_core" if dt == torch.float32 else "tensor_core")
+
+
+def test_digest_ids_card_equals_cpu(cuda):
+    from repro_torch.kernels.hash_mix.ops import digest_ids, hash_mix_u64
+
+    ids = [f"InChI=1S/C{i}H{2 * i + 2}/c{i}" for i in range(3000)] + ["", "é" * 90]
+    before = hash_mix_cuda.launches
+    got = digest_ids(ids, seed=5, device="cuda")
+    assert hash_mix_cuda.launches == before + 1
+    want = digest_ids(ids, seed=5, device="cpu")
+    assert got.dtype == np.uint32 and np.array_equal(got, want)
+    x = torch.randint(0, 2**31, (257, 40), dtype=torch.int64).to(torch.uint32)
+    assert np.array_equal(hash_mix_u64(x.to(cuda), 3).cpu().numpy(),
+                          hash_mix_u64(x, 3).numpy())
+
+
+def _smoke_lm(cuda, arch="yi-6b", dtype="float32"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype=dtype)
+    api = build_model(cfg)
+    return cfg, api, api.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_on_the_card_equals_dense_decode(cuda, dtype):
+    """Row 1 of a 3-row prefill decodes through the dense cache and through
+    slot 1 of 3 paged slots (0 and 2 inactive): equal bit for bit."""
+    from repro_torch.serve.kvcache import BlockManager, PagedCacheSpec
+
+    cfg, api, model = _smoke_lm(cuda, dtype=dtype)
+    bs, max_len, n = 16, 128, 40
+    spec = PagedCacheSpec(n_blocks=40, block_size=bs, max_slots=3,
+                          max_blocks_per_seq=max_len // bs)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 259, (1, n)))
+    toks = toks.repeat(3, 1).to(cuda)
+    logits, dense = api.prefill(model, {"tokens": toks,
+                                        "lengths": torch.full((3,), n, device=cuda)},
+                                max_len=max_len)
+    mgr = BlockManager(spec)
+    assert mgr.admit(1, n + 10)
+    pool = api.paged_cache_init(spec.n_blocks, bs, cuda)
+    api.paged_prefill_write(pool, [{k: t[1:2] for k, t in c.items()} for c in dense],
+                            torch.from_numpy(mgr.tables[1]).to(cuda), bs)
+    cur = torch.argmax(logits, -1)[:, None]
+    pos = torch.full((3,), n, device=cuda)
+    p_cur = torch.zeros((3, 1), dtype=torch.long, device=cuda)
+    p_cur[1] = cur[1]
+    p_pos = torch.tensor([0, n, 0], device=cuda)
+    tables = torch.from_numpy(mgr.tables).to(cuda)
+    for _ in range(8):
+        lg, dense = api.decode_step(model, cur, pos, dense)
+        p_lg, pool = api.decode_step_paged(model, p_cur, p_pos, tables, pool, bs)
+        assert torch.equal(p_lg[1], lg[1])
+        cur, pos = torch.argmax(lg, -1)[:, None], pos + 1
+        p_cur[1, 0] = torch.argmax(p_lg[1])
+        p_pos[1] += 1
+
+
+def test_suffix_prefill_on_the_card_near_full_prefill(cuda):
+    """float32: suffix logits within 1e-4 of full prefill's (the kernel sees
+    the rows in other tiles), bf16 within the smoke config's logit spread."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    for dtype, atol in (("float32", 1e-4), ("bfloat16", 5e-2)):
+        cfg, api, model = _smoke_lm(cuda, dtype=dtype)
+        bs, max_len, n = 16, 128, 70
+        prompt = np.random.default_rng(2).integers(0, 259, n)
+        toks = np.full((1, 80), 258)
+        toks[0, :n] = prompt
+        full, dense = api.prefill(model, {"tokens": torch.from_numpy(toks).to(cuda),
+                                          "lengths": torch.tensor([n], device=cuda)},
+                                  max_len=max_len)
+        pool = api.paged_cache_init(12, bs, cuda)
+        row = torch.tensor([1, 2, 3, 4, 5, 0, 0, 0], device=cuda)
+        api.paged_prefill_write(pool, dense, row, bs)
+        for start in (16, 48):
+            own = row.clone()
+            own[start // bs:5] = torch.arange(6, 6 + 5 - start // bs, device=cuda)
+            before = flash_attention_cuda.launches
+            got, pool = api.prefill_suffix(
+                model, torch.from_numpy(toks[:, start:]).to(cuda), start, own, pool,
+                bs, lengths=torch.tensor([n - start], device=cuda))
+            assert flash_attention_cuda.launches == before + cfg.n_layers
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       full.float().cpu().numpy(), atol=atol, rtol=atol)
+
+
+def test_continuous_engine_on_the_card(cuda):
+    """float32 smoke yi-6b: continuous greedy tokens == the static engine's,
+    prefix sharing on == off, the pool's books balance after close."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.kvcache import PagedCacheSpec
+    from repro_torch.serve.scheduler import ContinuousEngine
+
+    cfg, _, model = _smoke_lm(cuda)
+    stem = "InChI=1S/C8H9NO2/c1-6(10)9-7-2-4-8(11)5-3-7;"
+    texts = [stem + t for t in ("a1", "b22", "c333", "a1")] + ["C", "x" * 50]
+    spec = PagedCacheSpec(n_blocks=80, block_size=16, max_slots=4, max_blocks_per_seq=8)
+    scfg = ServeConfig(max_new_tokens=12, max_len=128)
+    static = [r.token_ids for r in Engine(cfg, model, scfg, device=cuda).generate(texts)]
+    outs = {}
+    for prefix in (True, False):
+        eng = ContinuousEngine(cfg, model, spec, scfg, prefix_cache=prefix, device=cuda)
+        outs[prefix] = [r.token_ids for r in eng.generate(texts)]
+        if prefix:
+            assert eng.stats.prefix_hits >= 3
+        eng.close(drain=True)
+        eng.check()
+    assert outs[True] == outs[False] == static
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b"])
+def test_moe_smoke_on_the_card_matches_the_cpu(cuda, arch):
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import monitor
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    api = build_model(cfg)
+    model = api.init(torch.Generator(device="cpu").manual_seed(0), "cpu")
+    card = copy.deepcopy(model).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 259, (3, 77)))
+    lens = torch.tensor([77, 40, 2])
+    with monitor(card) as card_drops:
+        got, cache = api.prefill(card, {"tokens": toks.to(cuda),
+                                        "lengths": lens.to(cuda)}, max_len=96)
+    with monitor(model) as cpu_drops:
+        want, cpu_cache = api.prefill(model, {"tokens": toks, "lengths": lens},
+                                      max_len=96)
+    assert (int(sum(c.dropped for c in card_drops))
+            == int(sum(c.dropped for c in cpu_drops)))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+    for _ in range(3):
+        tok = torch.argmax(want, -1)[:, None]
+        got, cache = api.decode_step(card, tok.to(cuda), lens.to(cuda), cache)
+        want, cpu_cache = api.decode_step(model, tok, lens, cpu_cache)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+        lens = lens + 1

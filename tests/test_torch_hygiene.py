@@ -72,7 +72,12 @@ def test_importing_every_port_module_pulls_in_no_jax_triton_or_repro():
                 "repro_torch.models.mamba2", "repro_torch.models.ssm",
                 "repro_torch.models.moe", "repro_torch.models.hybrid",
                 "repro_torch.configs.mamba2_13b",
-                "repro_torch.configs.jamba15_large_398b"):
+                "repro_torch.configs.jamba15_large_398b",
+                "repro_torch.core.baseline", "repro_torch.core.collisions",
+                "repro_torch.kernels.hash_mix.ops",
+                "repro_torch.serve.kvcache", "repro_torch.serve.scheduler",
+                "repro_torch.configs.moonshot_v1_16b_a3b",
+                "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.flags"):
         assert mod in report["imported"]
 
 
