@@ -125,11 +125,38 @@
    prefill, the phase's own peak memory, dropped assignments), profiled,
    and 8 requests through ``ContinuousEngine`` on the same weights
    (prefix sharing off for MoE): every request completes; SLO percentiles.
-10. A ``{"kernels": [...]}`` line (``launches`` summed over the paths:
-   ``hash_mix`` in the service and ``digest_ids``, ``flash_attention`` in
-   yi-6b's static and continuous serving and moonshot's), the card line,
-   and as the last line ``{"ok": true, "device": {...}}``.  Any failure
-   exits non-zero before it.
+10. Training.  In the kernel phase: ``ssd_scan``'s backward at
+   mamba2-1.3b's training shape (BH = 4 x 64, C = 8, P = 64, N = 128):
+   the states' gradient equals autograd through the plain version on the
+   card bit for bit, the decay's within 1e-5 of its terms' magnitude, the
+   backward launch timed warm and cold; ``flash_attention``'s backward
+   (PyTorch ops after the kernel's forward) in bf16 at yi-6b's training
+   shape (B = 4, Hq = 32, Hkv = 4, S = 2,048, D = 128, causal) and at
+   gemma3-12b's window (S = 4,096, D = 256, window 1,024): dq, dk, dv
+   within ``grad_bound_excess``'s bound (derived from the forward's), a
+   backward without ``D = rowsum(dO * O)`` outside it, SDPA's backward
+   timed beside it.  Then, after the MoE phases: yi-6b,
+   moonshot-v1-16b-a3b and mamba2-1.3b at full width cut to 2 layers in
+   float32, one train state, one batch: loss and every parameter's
+   gradient card against CPU within ``MODEL_ATOL``/``MODEL_RTOL``, none
+   zero on the card where the CPU's is not, 2 ``flash_attention`` or 3
+   ``ssd_scan`` launches a layer; ``Trainer`` on jamba's smoke config on
+   the card crashes at step 3 and resumes from step 2's checkpoint bit
+   for bit; and full-size training through ``launch.train.run`` (B = 4 x
+   2,048 tokens of the index-backed corpus, bf16 compute over float32
+   masters and moments): mamba2-1.3b at 48 layers for 5 steps and yi-6b
+   cut to 4 of its 32 layers for 3 (its 6.06B parameters with float32
+   moments need about 97 GB: more than the card), with step ms, tokens/s,
+   peak memory, every kernel's launches a step (144 ``ssd_scan``, 8
+   tensor-core ``flash_attention``), one more step under the profiler
+   (the attention backward's share) and the final checkpoint's seconds
+   and bytes (then deleted).
+11. A ``{"kernels": [...]}`` line (``launches`` summed over the paths:
+   ``hash_mix`` in the service, ``digest_ids`` and training's batch
+   verify, ``flash_attention`` in yi-6b's static and continuous serving,
+   moonshot's and training, ``ssd_scan`` in serving and training), the
+   card line, and as the last line ``{"ok": true, "device": {...}}``.
+   Any failure exits non-zero before it.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -1587,6 +1614,420 @@ def moe_serving_phase(work: Path, seed: int, card: str) -> int:
     return launches + cont
 
 
+# -- training ---------------------------------------------------------------
+#
+# Backward cases: (name, B, Hq, Hkv, S, D, window).  yi-6b's training shape
+# (B = 4 sequences of 2,048 tokens) and gemma3-12b's sliding-window layer
+# (B = 1, S = 4,096, window 1,024).  The ssd_scan backward at mamba2-1.3b's
+# training shape: BH = 4 x 64 heads, C = 8 chunks of 256.
+FA_TRAIN = ("yi-6b train", 4, 32, 4, 2048, 128, None)
+FA_TRAIN_WINDOW = ("gemma3-12b window", 1, 16, 8, 4096, 256, 1024)
+SSD_TRAIN = ("train", 256, 8, 64, 128)
+TRAIN_PARITY = ("yi-6b", "moonshot-v1-16b-a3b", "mamba2-1.3b")
+TRAIN_PARITY_LENGTHS = (255, 97)  # prompt bytes of the parity batch
+CRASH_ARCH = "jamba-1.5-large-398b"  # smoke: both kernels and the MoE on one path
+TRAIN_SEQ, TRAIN_BATCH = 2048, 4
+# the full-size runs: (arch, layers or None for the full depth, steps)
+FULL_TRAIN = (("mamba2-1.3b", None, 5), ("yi-6b", 4, 3))
+
+
+def ssd_scan_backward_case(seed: int):
+    """ssd_scan's backward at mamba2-1.3b's training shape: the gradient of
+    the states equals autograd through the plain version on the card bit
+    for bit (the adjoint is the same multiply-then-add recurrence), the
+    decay's within 1e-5 of its P x N terms' magnitude; the backward launch
+    (the kernel on flipped copies) timed warm and cold."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    name, bh, c, p, n = SSD_TRAIN
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 7)
+    states = torch.randn((bh, c, p, n), generator=g, device=dev).requires_grad_()
+    decay = torch.rand((bh, c), generator=g, device=dev).requires_grad_()
+    d_out = torch.randn((bh, c, p, n), generator=g, device=dev)
+    out = ssd_scan(states, decay)
+    if out.grad_fn is None:
+        fail("ssd_scan: the kernel's output carries no grad_fn")
+    before = ssd_scan_cuda.launches
+    d_states, d_decay = torch.autograd.grad(out, (states, decay), d_out,
+                                            retain_graph=True)
+    if ssd_scan_cuda.launches != before + 1:
+        fail("ssd_scan backward: the kernel was not launched once")
+    s2, d2 = states.detach().clone().requires_grad_(), decay.detach().clone().requires_grad_()
+    want_s, want_d = torch.autograd.grad(ssd_scan_ref(s2, d2), (s2, d2), d_out)
+    torch.cuda.synchronize()
+    if not torch.equal(d_states, want_s):
+        fail(f"ssd_scan backward: dstates differs from autograd of the plain version "
+             f"({int((d_states != want_s).sum())} elements)")
+    terms = (d_states * out.detach()).abs().sum(dim=(2, 3))
+    dd_ratio = float(((d_decay - want_d).abs() / (1e-5 * terms + 1e-6)).max())
+    if not dd_ratio <= 1.0:
+        fail(f"ssd_scan backward: ddecay outside 1e-5 of its terms ({dd_ratio:.3g})")
+    gf, df = d_out.flip(1).contiguous(), decay.detach().flip(1).contiguous()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: ssd_scan_cuda(gf, df), 20)
+    cold = cold_ms(lambda: ssd_scan_cuda(gf, df), 10, flush)
+    plain = cuda_ms(lambda: ssd_scan_ref(gf, df), 3, warmup=1)
+    whole = cuda_ms(lambda: torch.autograd.grad(out, (states, decay), d_out,
+                                                retain_graph=True), 10)
+    nbytes = 2 * gf.numel() * 4 + df.numel() * 4
+    bnd, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                  (2 * gf.numel() / F32_FLOPS_PER_S * 1e3, "operations"))
+    print(f"ssd_scan backward[{name}]: BH={bh} C={c} P={p} N={n} f32; dstates "
+          f"bit-exact with autograd through the plain version, ddecay within "
+          f"{dd_ratio:.3g} of 1e-5 x sum|terms|; backward launch kernel_ms={ms:.6f} "
+          f"cold_ms={cold:.6f} plain_ms={plain:.6f} library_ms=null bound_ms="
+          f"{bnd:.6f} ({by}); whole backward (flips, launch, ddecay sum) "
+          f"{whole:.6f} ms", flush=True)
+    del states, decay, d_out, out, d_states, d_decay, want_s, want_d, gf, df, flush
+    torch.cuda.empty_cache()
+    return dict(ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bnd, whole_ms=whole)
+
+
+def attention_backward_case(case, seed: int):
+    """flash_attention's backward (grad.py, PyTorch ops after the kernel's
+    forward) in bfloat16 at a training shape: dq, dk, dv within the bound
+    ``grad_bound_excess`` derives from the forward's, against autograd
+    through the plain version in float32; a backward that drops the
+    ``D = rowsum(dO * O)`` term must read outside it.  Timed beside SDPA's
+    backward (for the record: the port never calls it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.grad import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import grad_bound_excess
+
+    name, b, hq, hkv, s, d, window = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 11)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(torch.bfloat16)
+               .transpose(1, 2).requires_grad_() for h in (hq, hkv, hkv))
+    d_out = torch.randn((b, hq, s, d), generator=g, device=dev).to(torch.bfloat16)
+    if route(q, k, v) != "tensor_core":
+        fail(f"flash_attention backward {name}: the forward left the tensor-core route")
+    out = flash_attention(q, k, v, causal=True, window=window)
+    if out.grad_fn is None:
+        fail("flash_attention: the kernel's output carries no grad_fn")
+    grads = torch.autograd.grad(out, (q, k, v), d_out)
+    ratios = grad_bound_excess(q, k, v, d_out, grads, True, window)
+    wrong = grad_bound_excess(q, k, v, d_out, flash_attention_bwd(
+        q.detach(), k.detach(), v.detach(), torch.zeros_like(out), d_out, True, window),
+        True, window)
+    del grads
+    if not max(ratios) <= 1.0:
+        fail(f"flash_attention backward {name}: dq, dk, dv at {ratios} of the bound")
+    if not max(wrong) > 1.0:
+        fail(f"flash_attention backward {name}: the bound passes a backward without D")
+    qd, kd, vd, od = (t.detach() for t in (q, k, v, out))
+    ms = cuda_ms(lambda: flash_attention_bwd(qd, kd, vd, od, d_out, True, window), 5,
+                 warmup=1)
+    fwd = cuda_ms(lambda: flash_attention_cuda(qd, kd, vd, True, window), 10)
+    mask = None
+    if window is not None:
+        i = torch.arange(s, device=dev)[:, None]
+        j = torch.arange(s, device=dev)[None, :]
+        mask = (j <= i) & (j > i - window)
+    lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                             is_causal=mask is None, enable_gqa=True)
+    library = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), d_out,
+                                                  retain_graph=True), 5, warmup=1)
+    w = s if window is None else window
+    pairs = sum(min(p + 1, w) for p in range(s))
+    flops = 2 * b * hq * d * pairs * 6   # S twice (lse, then P), dP, dV, dQ, dK
+    nbytes = 2 * b * d * (3 * hq * s + 4 * hkv * s)  # q, out, dO, k, v in; dq, dk, dv out
+    bnd, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                  (flops / F32_FLOPS_PER_S * 1e3, "operations"))
+    tc_bnd = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    print(f"flash_attention backward[{name}]: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
+          f"window={window} bf16 causal; dq, dk, dv at {', '.join(f'{r:.4g}' for r in ratios)} "
+          f"of the derived bound (a backward without D reads "
+          f"{', '.join(f'{r:.4g}' for r in wrong)}); backward_ms={ms:.6f} (PyTorch ops, "
+          f"float32 products) forward kernel_ms={fwd:.6f} library_ms(sdpa backward)="
+          f"{library:.6f} flops={flops} bound_ms={bnd:.6f} ({by}, at the float32 peak "
+          f"its products run at; {tc_bnd:.6f} at the bf16 tensor-core peak a "
+          f"hand-written backward kernel could use)", flush=True)
+    del q, k, v, out, d_out, lib_out, qd, kd, vd, od, mask
+    torch.cuda.empty_cache()
+    return dict(ms=ms, fwd_ms=fwd, library_ms=library, ratios=ratios)
+
+
+def _loss_and_grads(api, model, batch):
+    loss, metrics = api.loss(model, batch)
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return float(loss.detach()), metrics, {n: torch.zeros_like(p) if gr is None else gr
+                                  for (n, p), gr in zip(named.items(), grads)}
+
+
+def train_parity_phase(work: Path, seed: int, wrappers) -> None:
+    """yi-6b, moonshot-v1-16b-a3b and mamba2-1.3b at full width cut to
+    ``MODEL_LAYERS`` layers, float32 with TF32 off, one train state drawn on
+    the card and copied to the CPU, one batch of two corpus prompts: the
+    loss and every parameter's gradient on the card against the CPU's
+    within ``MODEL_ATOL``/``MODEL_RTOL``, and every parameter with a
+    non-zero CPU gradient has one on the card (a kernel output cut off from
+    autograd would leave zeros upstream).  MoE routing is compared first:
+    a flip passes only at a probability near-tie, and then the gradients
+    are not comparable.  Per layer, ``flash_attention`` must launch twice
+    (forward, recompute) and ``ssd_scan`` three times (forward, recompute,
+    backward)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE, monitor
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import make_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    toks, lens = prompt_batch(corpus_prompts(work, TRAIN_PARITY_LENGTHS))
+    mask = (torch.arange(toks.shape[1])[None, :] < lens[:, None]).float()
+    for arch in TRAIN_PARITY:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=MODEL_LAYERS, dtype="float32")
+        api = build_model(cfg)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        card_model = make_train_state(api, g, device="cuda")["model"]
+        cpu_model = copy.deepcopy(card_model).to("cpu")
+        moe = any(isinstance(m, MoE) for m in card_model.modules())
+        batch = {"tokens": toks, "loss_mask": mask}
+        with monitor(cpu_model) as r_cpu:
+            want, _, want_g = _loss_and_grads(api, cpu_model, batch)
+        reset_launches(wrappers.values())
+        with monitor(card_model) as r_card:
+            got, _, got_g = _loss_and_grads(api, card_model,
+                                            {k: t.cuda() for k, t in batch.items()})
+            torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        flips, gaps = 0, []
+        for c_cpu, c_card in zip(r_cpu[:MODEL_LAYERS], r_card[:MODEL_LAYERS]):
+            a = c_cpu.top_i.sort(dim=-1).values
+            b = c_card.top_i.cpu().sort(dim=-1).values
+            for t in (a != b).any(dim=-1).nonzero().flatten().tolist():
+                flips += len(set(a[t].tolist()) - set(b[t].tolist()))
+                gaps.append(float(c_cpu.margin[t]))
+        worst, worst_rel, dead = 0.0, 0.0, []
+        bad = []
+        for n, wg in want_g.items():
+            gg = got_g[n].cpu()
+            if not torch.isfinite(gg).all():
+                fail(f"train parity {arch}: gradient of {n} not finite on the card")
+            worst = max(worst, float((gg - wg).abs().max()))
+            worst_rel = max(worst_rel, float((gg - wg).norm() / max(float(wg.norm()), 1e-30)))
+            if bool((wg != 0).any()) and not bool((gg != 0).any()):
+                dead.append(n)
+            if not torch.allclose(gg, wg, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+                bad.append(n)
+        routing = ("" if not moe else f"; router top-{cfg.experts_per_token} " + (
+            "identical" if not flips else f"{flips} assignments flipped (smallest gap "
+            f"{min(gaps):.3g})"))
+        want_l = {"flash_attention": 2 * MODEL_LAYERS if cfg.family != "ssm" else 0,
+                  "ssd_scan": 3 * MODEL_LAYERS if cfg.family == "ssm" else 0}
+        print(f"train parity: {arch} full width, {MODEL_LAYERS} layers, float32, "
+              f"allow_tf32=False; batch {lens.tolist()} tokens; loss card {got:.7g} CPU "
+              f"{want:.7g}; {len(want_g)} parameter gradients: max_abs_err={worst:.6g}, "
+              f"worst relative norm error {worst_rel:.3g} (atol {MODEL_ATOL}, rtol "
+              f"{MODEL_RTOL}), zero on the card where non-zero on the CPU: {len(dead)}"
+              f"{routing}; launches {json.dumps(launches)}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for kernel, want_n in want_l.items():
+            if launches[kernel] != want_n:
+                fail(f"train parity {arch}: {launches[kernel]} {kernel} launches, "
+                     f"want {want_n}")
+        if dead:
+            fail(f"train parity {arch}: gradients cut off on the card: {dead[:5]}")
+        if flips:
+            if max(gaps) > MOE_NEAR_TIE:
+                fail(f"train parity {arch}: routing differs at a gap of {max(gaps):.3g}")
+            print(f"train parity {arch}: routing differs only at near-ties; the "
+                  "gradients are not comparable after a flip", flush=True)
+        else:
+            if not abs(got - want) <= MODEL_ATOL + MODEL_RTOL * abs(want):
+                fail(f"train parity {arch}: loss {got} on the card, {want} on the CPU")
+            if bad:
+                fail(f"train parity {arch}: gradients differ: {bad[:5]}")
+        del card_model, cpu_model, got_g, want_g, r_cpu, r_card
+        torch.cuda.empty_cache()
+
+
+def crash_resume_phase(work: Path, seed: int) -> None:
+    """``Trainer`` on the card (jamba's smoke config in float32, batches
+    fetched through the index and verified by ``hash_mix``), checkpoints
+    every 2 steps: a run that dies at step 3 and resumes from step 2 gives
+    the uninterrupted run's losses and state bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import RecordStore, build_index
+    from repro_torch.data.pipeline import IndexedDataset
+    from repro_torch.models.weights import state_to_reference
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    store = RecordStore(work / "corpus")
+    ds = IndexedDataset(store, build_index(store), 256, device="cuda")
+    cfg = dataclasses.replace(get_config(CRASH_ARCH).smoke(), dtype="float32")
+    tcfg = TrainerConfig(seq_len=256, global_batch=4, steps=4, ckpt_every=2,
+                         compress_grads=True, seed=seed,
+                         opt=AdamWConfig(warmup_steps=2, total_steps=4))
+
+    def trainer(name):
+        return Trainer(cfg, tcfg, ds, work / "crash_resume" / name, device="cuda")
+
+    _, whole_state, whole = trainer("whole").run()
+    reached, _, _ = trainer("crash").run(die_at_step=3)
+    _, state, resumed = trainer("crash").run()
+    ds.close()
+    key = lambda h: (h["step"], h["loss"], h["grad_norm"], h["lr"])
+    same = [key(h) for h in resumed] == [key(h) for h in whole[2:]]
+    a, b = state_to_reference(state), state_to_reference(whole_state)
+    diff = [n for n in a if not torch.equal(a[n], b[n])]
+    print(f"crash/resume: {CRASH_ARCH} smoke, float32, int8_ef, on the card: died at "
+          f"step {reached}, resumed from step 2; losses {[round(h['loss'], 6) for h in resumed]} "
+          f"vs uninterrupted {[round(h['loss'], 6) for h in whole[2:]]}: "
+          f"{'bit for bit' if same else 'DIFFERENT'}; state tensors differing: "
+          f"{len(diff)} of {len(a)}; {time.perf_counter() - t0:.1f} s", flush=True)
+    if reached != 3 or not same or diff:
+        fail(f"crash/resume: the resumed run differs from the uninterrupted one "
+             f"({diff[:5]})")
+
+
+def profile_train_step(tr, state, step: int, card: str, label: str) -> dict:
+    """One more train step under ``torch.profiler``: the device busy time,
+    the share of it under the ``flash_attention.backward`` span (the
+    attention backward's PyTorch ops) and in the ``ssd_scan`` kernel, and
+    the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = tr.batch(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = tr._step_fn(state, batch)
+        float(metrics["loss"])
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    attn_bwd = sum(e.device_time_total for e in events if e.device_type == DeviceType.CPU
+                   and e.name == "flash_attention.backward") / 1e3
+    per: dict = {}
+    for e in device:
+        t, n = per.get(e.name, (0.0, 0))
+        per[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    scan = sum(t for name, (t, _) in per.items() if "ssd_scan" in name)
+    fa_fwd = sum(t for name, (t, _) in per.items() if "fa_forward" in name)
+    tops = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    top = "; ".join(f"{k[:50]} {t:.3f} ms x{n}" for k, (t, n) in tops)
+    if busy <= 0:
+        print(f"train_profile[{label}]: the profiler saw no device time: shares not "
+              "measured", flush=True)
+        return {}
+    print(f"train_profile[{label}]: one step under the profiler, wall {wall * 1e3:.3f} ms, "
+          f"device busy {busy:.3f} ms ({busy / (wall * 1e3):.3f} of the wall); "
+          f"flash_attention.backward span {attn_bwd:.3f} ms = {attn_bwd / busy:.4f} of the "
+          f"busy time; fa_forward kernels {fa_fwd:.3f} ms = {fa_fwd / busy:.4f}; "
+          f"ssd_scan kernel {scan:.3f} ms = {scan / busy:.4f}; top: {top}; card: {card}",
+          flush=True)
+    return dict(busy_ms=busy, attn_bwd_ms=attn_bwd, attn_bwd_share=attn_bwd / busy,
+                scan_ms=scan)
+
+
+def full_training_phase(work: Path, arch: str, layers, steps: int, card: str,
+                        wrappers) -> dict:
+    """``arch`` at its published widths (``layers`` cuts the depth), bf16
+    compute over float32 masters and moments, through
+    ``repro_torch.launch.train.run``: ``TRAIN_BATCH`` sequences of
+    ``TRAIN_SEQ`` tokens, ``steps`` steps, the only checkpoint the final
+    one (timed, sized, deleted).  Every kernel's launches per step are
+    counted (reset just before the run); ``flash_attention`` must launch
+    twice a layer a step (forward, recompute) on the tensor-core route,
+    ``ssd_scan`` three times (forward, recompute, backward).  Then one
+    more step under the profiler."""
+    import shutil
+
+    from repro_torch.launch import train
+
+    wd = work / f"train-{arch}"
+    args = train.build_parser().parse_args(
+        ["--arch", arch, "--full-config", "--device", "cuda", "--steps", str(steps),
+         "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+         "--ckpt-every", str(steps), "--workdir", str(wd)]
+        + (["--layers", str(layers)] if layers else []))
+    per_step = []
+    last = {}
+
+    def counts():
+        return {f"{n}{'' if a == 'launches' else '.' + a}": getattr(fn, a)
+                for n, fn in wrappers.items() for a in sorted(vars(fn))
+                if a.endswith("launches")}
+
+    def on_step(step, rec):
+        now = counts()
+        per_step.append({k: v - last.get(k, 0) for k, v in now.items()})
+        last.update(now)
+        print(f"train[{arch}] step {step}: loss {rec['loss']:.4f} grad_norm "
+              f"{rec['grad_norm']:.4f} lr {rec['lr']:.3g} step_ms {rec['dt'] * 1e3:.3f}",
+              flush=True)
+
+    free = shutil.disk_usage(work).free
+    reset_launches(wrappers.values())
+    last.update(counts())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train.run(args, on_step=on_step)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    tr, hist, state = out["trainer"], out["history"], out["state"]
+    model = state["model"]
+    n_layers = len(model.layers)
+    n_params = sum(p.numel() for p in model.parameters())
+    if out["final_step"] != steps or len(hist) != steps:
+        fail(f"train[{arch}]: stopped at step {out['final_step']}")
+    for h in hist:
+        if not np.isfinite(h["loss"]) or not np.isfinite(h["grad_norm"]):
+            fail(f"train[{arch}]: step {h['step']} loss {h['loss']} not finite")
+    fam = tr.api.cfg.family
+    want = {"flash_attention": 2 * n_layers if fam != "ssm" else 0,
+            "flash_attention.tc_launches": 2 * n_layers if fam != "ssm" else 0,
+            "ssd_scan": 3 * n_layers if fam == "ssm" else 0}
+    for i, got in enumerate(per_step):
+        for k, n in want.items():
+            if got[k] != n:
+                fail(f"train[{arch}] step {i}: {got[k]} {k} launches, want {n}")
+    ckpt = tr.ckpt.root / f"step_{steps:08d}"
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+    ckpt_s = hist[-1]["ckpt_s"]
+    steady = [h["dt"] for h in hist[1:]]
+    step_ms = float(np.median(steady)) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train[{arch}]: {n_layers} layers at full width ({n_params} parameters), "
+          f"bf16 compute, float32 masters and moments, B={TRAIN_BATCH} x S={TRAIN_SEQ}; "
+          f"{steps} steps in {secs:.1f} s (corpus, index and init included); step_ms "
+          f"first {hist[0]['dt'] * 1e3:.3f}, then {', '.join(f'{d * 1e3:.3f}' for d in steady)} "
+          f"(median {step_ms:.3f}) = {tokens / step_ms * 1e3:.1f} tokens/s; "
+          f"peak_allocated={peak} (at the start {base}); launches per step "
+          f"{json.dumps(per_step[-1])}; losses {[round(h['loss'], 4) for h in hist]}; "
+          f"final checkpoint {ckpt_bytes} bytes in {ckpt_s:.3f} s "
+          f"({ckpt_bytes / ckpt_s / 1e9:.3f} GB/s; {free} bytes free before); "
+          f"card: {card}", flush=True)
+    shutil.rmtree(tr.ckpt.root)
+    prof = profile_train_step(tr, state, steps, card, arch)
+    del out, tr, state, model
+    torch.cuda.empty_cache()
+    return dict(launches=per_step, steps=steps, step_ms=step_ms, prof=prof)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one card")
     ap.add_argument("--seed", type=int, default=0)
@@ -1631,6 +2072,9 @@ def main() -> None:
         attention_case(case, args.seed)
     ssd = ssd_scan_case(SSD_PREFILL, args.seed)
     ssd_scan_case(SSD_LONG, args.seed)
+    ssd_scan_backward_case(args.seed)
+    fa_bwd = attention_backward_case(FA_TRAIN, args.seed)
+    attention_backward_case(FA_TRAIN_WINDOW, args.seed)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     wrappers = {"sorted_probe": sorted_probe_cuda, "hash_mix": hash_mix_cuda,
@@ -1674,12 +2118,34 @@ def main() -> None:
         moe_model_check(Path(work), args.seed, card)
         fa_moe = moe_serving_phase(Path(work), args.seed, card)
         print(f"MoE phases: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        train_wrappers = {"flash_attention": flash_attention_cuda,
+                          "ssd_scan": ssd_scan_cuda, "hash_mix": hash_mix_cuda,
+                          "sorted_probe": sorted_probe_cuda}
+        train_parity_phase(Path(work), args.seed, lm_wrappers)
+        crash_resume_phase(Path(work), args.seed)
+        trained = {arch: full_training_phase(Path(work), arch, layers, steps, card,
+                                             train_wrappers)
+                   for arch, layers, steps in FULL_TRAIN}
+        print(f"training phases: {time.perf_counter() - t0:.1f} s", flush=True)
     hm_serving = launches["hash_mix"]
-    launches["hash_mix"] += digest_launches
-    launches["flash_attention"] = fa_static + fa_cont + fa_moe
+    train_total = {k: sum(step[k] for t in trained.values() for step in t["launches"])
+                   for k in ("flash_attention", "ssd_scan", "hash_mix", "sorted_probe")}
+    launches["hash_mix"] += digest_launches + train_total["hash_mix"]
+    launches["flash_attention"] = fa_static + fa_cont + fa_moe + train_total["flash_attention"]
+    launches["ssd_scan"] += train_total["ssd_scan"]
     print(f"launches by path: hash_mix serve_index {hm_serving} + digest_ids "
-          f"{digest_launches}; flash_attention yi-6b static {fa_static} + yi-6b "
-          f"continuous {fa_cont} + moonshot static and continuous {fa_moe}", flush=True)
+          f"{digest_launches} + training's batch verify {train_total['hash_mix']}; "
+          f"flash_attention yi-6b static {fa_static} + yi-6b continuous {fa_cont} + "
+          f"moonshot static and continuous {fa_moe} + training "
+          f"{train_total['flash_attention']}; ssd_scan mamba2 serving + training "
+          f"{train_total['ssd_scan']}; sorted_probe in training "
+          f"{train_total['sorted_probe']} (the launcher's index is in memory)", flush=True)
+    yi = trained["yi-6b"]
+    est = fa_bwd["ms"] * 4 / yi["step_ms"]
+    print(f"attention backward share of the yi-6b training step (4 layers): profiler "
+          f"{yi['prof'].get('attn_bwd_share', 'not measured')}; from the kernel phase's "
+          f"backward_ms x 4 layers / step_ms: {est:.4f}", flush=True)
 
     kernels = [
         dict(name="sorted_probe", route="cuda",

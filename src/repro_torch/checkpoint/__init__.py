@@ -1,1 +1,2 @@
-"""Catalog checkpoints in the reference package's layout (the weight bridge)."""
+"""Catalog checkpoints in the reference package's layout (the weight and
+train-state bridge) and the run's checkpoint manager."""

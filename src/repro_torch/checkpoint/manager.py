@@ -20,8 +20,15 @@ is read as uint16 and viewed as ``torch.bfloat16``, so no ``ml_dtypes`` is
 needed.  The publish is atomic (temporary directory, then ``os.replace``).
 
 Restored tensors land on ``device``, the card by default like every entry
-point of the port (``device="cpu"`` for the host).  The reference's asynchronous ``CheckpointManager`` (retention, resume) belongs
-to training and is not ported yet.
+point of the port (``device="cpu"`` for the host).
+
+:class:`CheckpointManager` keeps a run's checkpoints as the reference's
+does, one directory per step (``<root>/step_00000042/``): asynchronous
+save (host copies first, then a background thread writes), ``wait``,
+``keep_last`` retention, ``latest_step``, ``restore`` and the one-seek
+``restore_tensor``.  The trainer saves its state under the reference's
+train-state names (:func:`repro_torch.models.weights.state_to_reference`),
+so either package restores what the other wrote.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import hashlib
 import json
 import os
 import shutil
+import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
@@ -42,6 +51,7 @@ from ..device import DeviceLike, resolve_device
 
 __all__ = [
     "CatalogEntry",
+    "CheckpointManager",
     "flatten_with_names",
     "load_catalog",
     "read_tensor",
@@ -90,8 +100,8 @@ def _to_bytes(leaf: Leaf) -> Tuple[bytes, str, Tuple[int, ...]]:
         if t.dtype == torch.bfloat16:
             return t.view(torch.uint16).numpy().tobytes(), "bfloat16", tuple(t.shape)
         leaf = t.numpy()
-    arr = np.ascontiguousarray(leaf)
-    return arr.tobytes(), str(arr.dtype), tuple(arr.shape)
+    arr = np.asarray(leaf)  # not ascontiguousarray: it makes a 0-d array 1-d
+    return arr.tobytes(order="C"), str(arr.dtype), tuple(arr.shape)
 
 
 def _from_bytes(buf: bytes, entry: CatalogEntry) -> torch.Tensor:
@@ -200,3 +210,83 @@ def restore_pytree(tree_like: Any, directory: Union[str, Path],
         return named[prefix]
 
     return rebuild(tree_like, "")
+
+
+class CheckpointManager:
+    """Asynchronous, retained, resumable checkpoints under ``root``."""
+
+    def __init__(self, root: Union[str, Path], keep_last: int = 3):
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.keep_last = keep_last
+        self._pending: Optional[threading.Thread] = None
+
+    def _dir_for(self, step: int) -> Path:
+        return self.root / f"step_{step:08d}"
+
+    def steps(self) -> List[int]:
+        out = []
+        for p in self.root.glob("step_*"):
+            if p.is_dir() and not p.name.endswith(".tmp"):
+                try:
+                    out.append(int(p.name.split("_")[1]))
+                except (IndexError, ValueError):
+                    continue
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def save(self, step: int, tree: Any, meta: Optional[dict] = None,
+             blocking: bool = True) -> Path:
+        """Write ``tree`` (a nested or ``/``-named flat dict of tensors) as
+        step ``step``'s checkpoint, then prune to ``keep_last``.  With
+        ``blocking=False`` the tensors are copied to the host first (the
+        caller may update them in place next step) and a background thread
+        writes; :meth:`wait` joins it."""
+        meta = dict(meta or {}, step=step, time=time.time())
+        leaves = flatten_with_names(tree)
+        if not blocking:
+            leaves = [(n, t.detach().to("cpu", copy=True)
+                       if isinstance(t, torch.Tensor) else np.array(t))
+                      for n, t in leaves]
+        flat = dict(leaves)
+
+        def work():
+            save_pytree(flat, self._dir_for(step), meta)
+            self._prune()
+
+        if blocking:
+            work()
+        else:
+            self.wait()
+            self._pending = threading.Thread(target=work, daemon=True)
+            self._pending.start()
+        return self._dir_for(step)
+
+    def wait(self) -> None:
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                device: DeviceLike = "cuda") -> Tuple[int, Any]:
+        """``(step, tree)``: the tensors named as ``tree_like``'s leaves
+        (whose values are not read) from step ``step`` (default the
+        latest), on ``device``."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.root}")
+        return step, restore_pytree(tree_like, self._dir_for(step), device=device)
+
+    def restore_tensor(self, step: int, name: str,
+                       device: DeviceLike = "cuda") -> torch.Tensor:
+        """One tensor through its catalog offset (one seek)."""
+        d = self._dir_for(step)
+        return read_tensor(d, load_catalog(d)[name]).to(resolve_device(device))
+
+    def _prune(self) -> None:
+        steps = self.steps()
+        for s in steps[: -self.keep_last]:
+            shutil.rmtree(self._dir_for(s), ignore_errors=True)

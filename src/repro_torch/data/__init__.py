@@ -1,1 +1,2 @@
-"""Data helpers of the port (the tokenizer the serving path needs)."""
+"""Data plane of the port: the tokenizer, the stateless samplers and the
+index-backed training pipeline."""

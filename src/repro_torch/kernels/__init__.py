@@ -6,6 +6,10 @@ Each kernel ships as ``kernel.py`` (the ctypes wrapper of a
 PyTorch version of the same function) and ``ops.py`` (the entry point:
 the kernel for a CUDA tensor, the plain version for a CPU tensor).
 :mod:`repro_torch.kernels.build` compiles the sources at first use.
+``flash_attention`` and ``ssd_scan``, the two on the training path, are
+differentiable: ``flash_attention/grad.py`` holds the attention's
+``torch.autograd.Function`` (forward by the kernel, backward in PyTorch
+ops) and ``ssd_scan/ops.py`` the scan's (backward by the same kernel).
 
 * ``hash_mix``     — 128-bit mixing digest of packed identifiers.
 * ``sorted_probe`` — membership and lower bound of 64-bit keys in a sorted

@@ -1,10 +1,12 @@
-"""Public entry point for ``flash_attention``.
+"""Public entry point for ``flash_attention``, with its gradient.
 
 ``flash_attention(q, k, v, causal=True, window=None, scale=None)`` —
 attention of ``q (B, Hq, Sq, D)`` against ``k, v (B, Hkv, Skv, D)``, the
 queries being the last ``Sq`` positions of the key stream.  A CUDA tensor
 launches the CUDA kernel; a CPU tensor runs the plain PyTorch version.  A
-CUDA tensor never falls back to the plain version.
+CUDA tensor never falls back to the plain version.  Gradients flow through
+:class:`~.grad.FlashAttention`: the forward is the kernel, the backward
+PyTorch ops (see grad.py).
 """
 
 from __future__ import annotations
@@ -13,8 +15,7 @@ from typing import Optional
 
 import torch
 
-from .kernel import flash_attention_cuda
-from .ref import flash_attention_ref
+from .grad import FlashAttention
 
 __all__ = ["flash_attention"]
 
@@ -27,12 +28,5 @@ def flash_attention(
     window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """``(B, Hq, Sq, D)`` in q's dtype; see kernel/ref."""
-    if q.device.type == "cuda":
-        return flash_attention_cuda(q, k, v, causal, window, scale)
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_ref(q, k, v, causal, window, scale)
-    raise ValueError(
-        f"flash_attention: unsupported devices {q.device} / {k.device} / "
-        f"{v.device}"
-    )
+    """``(B, Hq, Sq, D)`` in q's dtype, differentiable; see kernel/ref/grad."""
+    return FlashAttention.apply(q, k, v, causal, window, scale)

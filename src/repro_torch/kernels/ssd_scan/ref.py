@@ -10,9 +10,10 @@ across chunks a compact per-(batch x head) state follows
 
 over ``states (BH, C, P, N)`` float32 and the scalar chunk decays ``decay
 (BH, C)`` float32.  The output is the *prefix* state entering each chunk,
-``prefix[:, c] = h[c]``, in states' dtype and shape.  The carry is float32,
-and each step is a multiply then an add (no fused multiply-add), as the
-CUDA kernel does it.  Runs on any device; the CPU tests and the CPU model
+``prefix[:, c] = h[c]``, in states' dtype and shape.  The carry is float32
+(float64 for float64 inputs, which the gradient checks use), and each step
+is a multiply then an add (no fused multiply-add), as the CUDA kernel does
+it.  Runs on any device; the CPU tests and the CPU model
 path use it, and on the card it is the yardstick the kernel is held to.
 """
 
@@ -36,9 +37,10 @@ def check_shapes(states: torch.Tensor, decay: torch.Tensor):
 def ssd_scan_ref(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
     """``states (BH, C, P, N), decay (BH, C) → prefix (BH, C, P, N)``."""
     bh, c, p, n = check_shapes(states, decay)
+    acc = torch.float64 if states.dtype == torch.float64 else torch.float32
     prefix = torch.empty_like(states)
-    h = torch.zeros((bh, p, n), dtype=torch.float32, device=states.device)
+    h = torch.zeros((bh, p, n), dtype=acc, device=states.device)
     for j in range(c):
         prefix[:, j] = h
-        h = decay[:, j, None, None].float() * h + states[:, j].float()
+        h = decay[:, j, None, None].to(acc) * h + states[:, j].to(acc)
     return prefix

@@ -1,6 +1,6 @@
 """Shared model substrate of the port: norms, RoPE, GQA attention, the
-SwiGLU MLP and the embeddings (the part of the reference's
-``models/common.py`` that serving needs).
+SwiGLU MLP, the embeddings and the chunked cross entropy of training
+(the reference's ``models/common.py``).
 
 Conventions
 -----------
@@ -9,9 +9,15 @@ Conventions
   ``wu``, ``wd``, ``table``, ``unembed``); the reference's functions keep
   their names and take the module where the reference took a params dict.
 * The reference keeps float32 masters and casts each matrix to the compute
-  dtype at every use; the port stores each matrix in the compute dtype,
-  cast once at load, which gives the same values.  Norm weights stay
+  dtype at every use.  A serving module of the port stores each matrix in
+  the compute dtype, cast once at load, which gives the same values; a
+  training module keeps float32 masters (``train.loop.make_train_state``).
+  Every use goes through :func:`cast`, a no-op for the first and the
+  reference's differentiable cast for the second.  Norm weights stay
   float32, as ``rmsnorm`` reads them.
+* Training recomputes each block in the backward pass (:func:`remat`, the
+  counterpart of the reference's ``jax.checkpoint`` of its layer scan),
+  and :func:`chunked_xent` each logits chunk.
 * Full-sequence attention goes through ``flash_attention`` (the CUDA kernel
   for a CUDA tensor, the plain version on the CPU).  One-token decode is
   the reference's default unchunked path: a grouped product with float32
@@ -36,6 +42,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ModelConfig
@@ -51,6 +58,8 @@ __all__ = [
     "attention_decode",
     "attention_decode_paged",
     "attention_init",
+    "cast",
+    "chunked_xent",
     "compute_dtype",
     "dense_init",
     "embed_apply",
@@ -61,10 +70,12 @@ __all__ = [
     "paged_view",
     "paged_write_rows",
     "param_count",
+    "remat",
     "rmsnorm",
     "rmsnorm_init",
     "rope_freqs",
     "unembed_logits",
+    "unembed_weight",
 ]
 
 NEG_INF = -1e30
@@ -75,8 +86,29 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # serving modules: no gradients are taken through the weights
+    # serving modules: no gradients are taken through the weights (training
+    # turns them on, over float32 masters: train.loop.make_train_state)
     return nn.Parameter(t, requires_grad=False)
+
+
+def cast(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``t`` in the compute dtype, the reference's ``.astype(cdt)`` at a
+    use: nothing to do for a serving module's matrices (stored in it), a
+    differentiable cast of a training module's float32 masters."""
+    cdt = compute_dtype(cfg)
+    return t if t.dtype == cdt else t.to(cdt)
+
+
+def remat(fn, *args):
+    """``fn(*args)``; while gradients are recorded, its activations are not
+    kept but recomputed in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant).  The reference wraps its layer scan's body in
+    ``jax.checkpoint`` with a policy that saves the attention, FFN and mixer
+    outputs (``flags.remat_policy``, "names"); the port recomputes the
+    whole block, the reference's "nothing" policy."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -171,13 +203,13 @@ def _qkv(attn: Attention, cfg: ModelConfig, x: torch.Tensor):
     """x (B, S, D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh) in compute dtype."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = x @ attn.wq
-    k = x @ attn.wk
-    v = x @ attn.wv
+    q = x @ cast(attn.wq, cfg)
+    k = x @ cast(attn.wk, cfg)
+    v = x @ cast(attn.wv, cfg)
     if cfg.qkv_bias:
-        q = q + attn.bq
-        k = k + attn.bk
-        v = v + attn.bv
+        q = q + cast(attn.bq, cfg)
+        k = k + cast(attn.bk, cfg)
+        v = v + cast(attn.bv, cfg)
     return q.view(b, s, h, dh), k.view(b, s, hkv, dh), v.view(b, s, hkv, dh)
 
 
@@ -202,14 +234,14 @@ def attention_apply(
     else:
         # cross attention: q from x, k/v from the encoder output (no RoPE)
         f = kv_from.shape[1]
-        q = (x @ attn.wq).view(b, s, h, dh)
-        k = (kv_from @ attn.wk).view(b, f, hkv, dh)
-        v = (kv_from @ attn.wv).view(b, f, hkv, dh)
+        q = (x @ cast(attn.wq, cfg)).view(b, s, h, dh)
+        k = (kv_from @ cast(attn.wk, cfg)).view(b, f, hkv, dh)
+        v = (kv_from @ cast(attn.wv, cfg)).view(b, f, hkv, dh)
         causal, window = False, None
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           causal=causal, window=window)       # (B, H, S, Dh)
     out = out.transpose(1, 2).reshape(b, s, h * dh)
-    return out @ attn.wo
+    return out @ cast(attn.wo, cfg)
 
 
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -277,7 +309,7 @@ def attention_decode(
         valid = pos[:, None] - (pos[:, None] - idx) % window >= 0
     ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid)
     ctx = ctx.reshape(b, h * dh).to(compute_dtype(cfg))
-    return (ctx @ attn.wo)[:, None, :], cache
+    return (ctx @ cast(attn.wo, cfg))[:, None, :], cache
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +384,7 @@ def attention_decode_paged(
     valid = torch.arange(k_cache.shape[2], device=x.device)[None, :] <= pos[:, None]
     ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid)
     ctx = ctx.reshape(b, h * dh).to(compute_dtype(cfg))
-    return (ctx @ attn.wo)[:, None, :], cache
+    return (ctx @ cast(attn.wo, cfg))[:, None, :], cache
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +408,7 @@ def mlp_init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def mlp_apply(mlp: SwiGLU, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ mlp.wg) * (x @ mlp.wu)) @ mlp.wd
+    return (F.silu(x @ cast(mlp.wg, cfg)) * (x @ cast(mlp.wu, cfg))) @ cast(mlp.wd, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -404,12 +436,21 @@ def embed_init(cfg: ModelConfig, generator: torch.Generator) -> Embed:
 
 
 def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return embed.table[tokens]
+    # gather, then cast the rows (the reference casts the table, then
+    # gathers: the same values, without a cast copy of the whole table).
+    # F.embedding, not indexing: its backward sums a row's gradients in one
+    # order on the CPU and on the card, where the CPU's index backward
+    # (a parallel accumulate) rounds differently run to run
+    return cast(F.embedding(tokens, embed.table), cfg)
+
+
+def unembed_weight(embed: Embed, cfg: ModelConfig) -> torch.Tensor:
+    """The ``(D, V)`` unembedding in the compute dtype."""
+    return cast(embed.table.T if cfg.tie_embeddings else embed.unembed, cfg)
 
 
 def unembed_logits(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    w = embed.table.T if cfg.tie_embeddings else embed.unembed
-    return x @ w
+    return x @ unembed_weight(embed, cfg)
 
 
 def last_token_logits(
@@ -428,6 +469,45 @@ def last_token_logits(
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         last = hidden[rows, lengths.long() + offset - 1]
     return unembed_logits(embed, cfg, last[:, None])[:, 0]
+
+
+def _chunk_nll(hx: torch.Tensor, tx: torch.Tensor, mx: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """Masked summed NLL of one chunk: a ``(B, c, V)`` float32 logits slab,
+    its log-sum-exp and the target logits."""
+    logits = (hx @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)                         # (B, c)
+    tgt = torch.gather(logits, -1, tx[..., None].long())[..., 0]
+    return torch.sum((lse - tgt) * mx)
+
+
+def chunked_xent(
+    embed: Embed,
+    cfg: ModelConfig,
+    hidden: torch.Tensor,                  # (B, S, D) final hidden states
+    targets: torch.Tensor,                 # (B, S) next-token ids
+    mask: Optional[torch.Tensor] = None,   # (B, S) 1 = contributes to the loss
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean cross entropy over the masked positions without a ``(B, S, V)``
+    logits tensor: the sequence goes in chunks of ``chunk`` positions (the
+    last one ragged, where the reference pads it with masked rows), each a
+    ``(B, chunk, V)`` float32 slab.  While gradients are recorded each
+    chunk runs under :func:`remat`, which keeps only its inputs and
+    recomputes its logits in the backward pass, so one slab (and its
+    gradient) is the peak at any time.  The mean divides by ``max(sum(mask),
+    1)``."""
+    b, s, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    c = min(chunk, s)
+    w = unembed_weight(embed, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, c):
+        total = total + remat(_chunk_nll, hidden[:, lo:lo + c],
+                              targets[:, lo:lo + c], mask[:, lo:lo + c], w)
+    return total / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def param_count(model: nn.Module) -> int:

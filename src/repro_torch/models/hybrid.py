@@ -13,8 +13,9 @@ The cache is a list with one dict per layer: ``{"k", "v"}`` ``(B, Hkv,
 max_len, Dh)`` at the attention position, ``{"ssm", "conv"}`` at a Mamba
 position.  Prefill runs ``flash_attention`` once per super-block and
 ``ssd_scan`` once per Mamba position; MoE drops tokens over capacity in
-prefill and never in decode, as in the reference.  Training
-(``hybrid_loss``) is a later slice (ROADMAP Queue 1 item 7).
+prefill and never in decode, as in the reference.  ``hybrid_loss`` is
+the training loss; while gradients are recorded, ``hybrid_forward``
+recomputes each layer in the backward pass (``common.remat``).
 """
 
 from __future__ import annotations
@@ -37,12 +38,15 @@ from .common import (
     attention_apply,
     attention_decode,
     attention_init,
+    cast,
+    chunked_xent,
     compute_dtype,
     embed_apply,
     embed_init,
     last_token_logits,
     mlp_apply,
     mlp_init,
+    remat,
     rmsnorm_init,
     unembed_logits,
 )
@@ -55,6 +59,7 @@ __all__ = [
     "hybrid_cache_init",
     "hybrid_decode_step",
     "hybrid_forward",
+    "hybrid_loss",
     "hybrid_prefill",
     "init_hybrid",
 ]
@@ -131,23 +136,39 @@ def _ffn(layer: HybridLayer, cfg: ModelConfig, x: torch.Tensor,
     return mlp_apply(layer.ffn, cfg, h), torch.zeros((), device=x.device)
 
 
-@torch.no_grad()
+def _layer_forward(layer: HybridLayer, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor):
+    """One layer → (x, its FFN's aux loss)."""
+    h = layer.ln_mix(x)
+    if isinstance(layer.mixer, Attention):
+        x = x + attention_apply(layer.mixer, cfg, h, positions, causal=True)
+    else:
+        x = x + mamba_apply(layer.mixer, cfg, h)
+    y, a = _ffn(layer, cfg, x)
+    return x + y, a
+
+
 def hybrid_forward(model: Hybrid, cfg: ModelConfig,
                    tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (hidden (B, S, D), summed MoE aux loss)."""
+    """→ (hidden (B, S, D), summed MoE aux loss).  Each layer runs under
+    ``remat``."""
     x = embed_apply(model.embed, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        h = layer.ln_mix(x)
-        if isinstance(layer.mixer, Attention):
-            x = x + attention_apply(layer.mixer, cfg, h, positions, causal=True)
-        else:
-            x = x + mamba_apply(layer.mixer, cfg, h)
-        y, a = _ffn(layer, cfg, x)
-        x = x + y
+        x, a = remat(_layer_forward, layer, cfg, x, positions)
         aux = aux + a
     return model.final_norm(x), aux
+
+
+def hybrid_loss(model: Hybrid, cfg: ModelConfig, tokens: torch.Tensor,
+                loss_mask: Optional[torch.Tensor] = None):
+    """Next-token cross entropy + ``router_aux_coef`` x the MoE aux loss →
+    (loss, {"xent", "aux"})."""
+    hidden, aux = hybrid_forward(model, cfg, tokens)
+    mask = None if loss_mask is None else loss_mask[:, 1:]
+    xent = chunked_xent(model.embed, cfg, hidden[:, :-1], tokens[:, 1:], mask)
+    return xent + cfg.router_aux_coef * aux, {"xent": xent, "aux": aux}
 
 
 def hybrid_cache_init(cfg: ModelConfig, batch: int, max_len: int,
@@ -193,7 +214,7 @@ def hybrid_prefill(model: Hybrid, cfg: ModelConfig, tokens: torch.Tensor,
                 kv[name] = buf
             cache.append(kv)
             att = flash_attention(q.transpose(1, 2), kc, vc, causal=True)
-            x = x + att.transpose(1, 2).reshape(b, s, -1) @ layer.mixer.wo
+            x = x + att.transpose(1, 2).reshape(b, s, -1) @ cast(layer.mixer.wo, cfg)
         else:
             y, st = mamba_apply(layer.mixer, cfg, h, return_state=True)
             x = x + y

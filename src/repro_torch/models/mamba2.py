@@ -33,7 +33,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan.ops import ssd_scan
-from .common import _param, compute_dtype, dense_init, rmsnorm
+from .common import _param, cast, compute_dtype, dense_init, rmsnorm
 
 __all__ = [
     "Mamba2",
@@ -135,7 +135,7 @@ def mamba_apply(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     s = s_true + pad
     nc = s // q
 
-    proj = x @ m.in_proj
+    proj = x @ cast(m.in_proj, cfg)
     z, xbc_pre, dt_raw = _split_proj(cfg, proj)
     xbc = _causal_conv(xbc_pre, m.conv_w, m.conv_b)
     xs = xbc[..., :d_inner].reshape(b, s, h, p)
@@ -158,9 +158,13 @@ def mamba_apply(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     # intra-chunk: w[q_, k_] = C_q·B_k · exp(cum_q - cum_k) · dt_k, causal
     scores = torch.einsum("bcqn,bckn->bcqk", c_c, b_c)[:, :, None]  # (B,C,1,Q,Q)
     cum_h = cum.movedim(3, 2)                          # (B, C, H, Q)
-    dmat = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
+    # the mask goes on the exponent, not on the exponential: above the
+    # diagonal cum_q - cum_k >= 0 can exceed float32's exp range, and the
+    # reference's where(causal, exp(.), 0) then has gradient 0 * inf = NaN
+    # (the values are the same: exp(-inf) = 0)
     causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    dmat = torch.where(causal, dmat, 0.0)
+    dmat = torch.exp(torch.where(causal, cum_h[..., :, None] - cum_h[..., None, :],
+                                 -math.inf))
     dt_h = dt_c.movedim(3, 2)                          # (B, C, H, Q)
     w = scores * dmat * dt_h[..., None, :]             # (B, C, H, Q, Q)
     del scores, dmat
@@ -189,7 +193,7 @@ def mamba_apply(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
 
     # gated RMSNorm then out projection
     y = rmsnorm(y * F.silu(z), m.norm_w, cfg.norm_eps)
-    out = y @ m.out_proj
+    out = y @ cast(m.out_proj, cfg)
     if pad:
         out = out[:, :s_true]
     if not return_state:
@@ -219,7 +223,7 @@ def mamba_decode(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     cdt = compute_dtype(cfg)
     b = x.shape[0]
     d_inner, h, p, n, _ = _dims(cfg)
-    proj = x[:, 0] @ m.in_proj                         # (B, d_proj)
+    proj = x[:, 0] @ cast(m.in_proj, cfg)                         # (B, d_proj)
     z, xbc_new, dt_raw = _split_proj(cfg, proj)
 
     # conv ring: state["conv"] (B, K-1, conv_dim) holds the last K-1 inputs
@@ -241,5 +245,5 @@ def mamba_decode(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("bn,bhpn->bhp", cvec, ssm) + m.d_skip[None, :, None] * xs
     y = y.reshape(b, d_inner).to(cdt)
     y = rmsnorm(y * F.silu(z), m.norm_w, cfg.norm_eps)
-    out = (y @ m.out_proj)[:, None, :]
+    out = (y @ cast(m.out_proj, cfg))[:, None, :]
     return out, {"ssm": ssm, "conv": new_conv}

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .common import _param, compute_dtype, dense_init
+from .common import _param, cast, compute_dtype, dense_init
 
 __all__ = ["MoE", "Routed", "moe_apply", "moe_init", "monitor", "route"]
 
@@ -150,7 +150,9 @@ def _local_moe(
     tok_buf, w_buf = tok_buf[:el], w_buf[:el]
 
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-    xe = xpad[tok_buf]                                           # (E_l, C, D)
+    # row gathers through F.embedding: a backward that sums each row's
+    # gradients in one order, run after run (see common.embed_apply)
+    xe = F.embedding(tok_buf, xpad)                              # (E_l, C, D)
 
     g = F.silu(torch.bmm(xe, wg))
     u = torch.bmm(xe, wu)
@@ -163,7 +165,7 @@ def _local_moe(
     src = torch.empty_like(dest)
     src[order] = dest
     yflat = torch.cat([ye.reshape(el * capacity, d), ye.new_zeros((1, d))], dim=0)
-    y = yflat[src].view(t, k, d).sum(dim=1)
+    y = F.embedding(src, yflat).view(t, k, d).sum(dim=1)
 
     # --- aux telemetry -------------------------------------------------------
     counts = torch.zeros((e,), dtype=torch.float32, device=dev)
@@ -198,7 +200,8 @@ def moe_apply(m: MoE, cfg: ModelConfig, x: torch.Tensor, no_drop: bool = False,
     b, s, d = x.shape
     k = cfg.experts_per_token
     routed = route(x.reshape(b * s, d), m.router, k)
-    y, aux, dropped = _local_moe(x, m.router, m.wg, m.wu, m.wd, cfg=cfg, e0=0,
+    y, aux, dropped = _local_moe(x, m.router, *(cast(w, cfg) for w in (m.wg, m.wu, m.wd)),
+                                 cfg=cfg, e0=0,
                                  capacity=capacity_for(cfg, b * s, no_drop),
                                  routed=routed)
     if m.monitor is not None:

@@ -2,17 +2,20 @@
 ``models/registry.py``.
 
 ``build_model(cfg)`` returns a :class:`ModelApi` whose entry points the
-serving engine programs against:
+trainer and the serving engine program against:
 
   init(generator, device="cuda")  → model (an ``nn.Module``)
+  loss(model, batch)              → (scalar, metrics)       [train step core]
   prefill(model, batch, max_len)  → (last_logits, cache)
   decode_step(model, token, pos, cache) → (logits, cache)
   cache_init(batch, max_len, device="cuda") → cache
 
+``loss`` reads ``batch["tokens"]`` (B, S), ``batch["loss_mask"]`` (B, S)
+when present and, on the VLM family, ``batch["patch_embeds"]`` (B, I, D),
+as the reference's does; gradients flow through every kernel on its path.
 ``batch["lengths"]`` (B,) makes prefill read each sequence's true last
 prompt position.  The dense, MoE, VLM, SSM (mamba2) and hybrid (Jamba)
-families are ported; ``loss`` (training, ROADMAP Queue 1 item 7) is
-``None`` until its slice, and encoder-decoder (item 9) raises
+families are ported; encoder-decoder (ROADMAP Queue 1 item 9) raises
 ``NotImplementedError``.
 
 Transformer stacks without a sliding-window layer also expose the paged
@@ -43,10 +46,10 @@ __all__ = ["ModelApi", "build_model"]
 class ModelApi:
     cfg: ModelConfig
     init: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
     cache_init: Callable
-    loss: Optional[Callable] = None
     # paged-KV serving contract (continuous batching); None where unsupported
     paged_cache_init: Optional[Callable] = None
     decode_step_paged: Optional[Callable] = None
@@ -59,6 +62,13 @@ class ModelApi:
 
 
 def _transformer_api(cfg: ModelConfig) -> ModelApi:
+    def loss(model, batch):
+        return transformer.lm_loss(
+            model, cfg, batch["tokens"],
+            loss_mask=batch.get("loss_mask"),
+            extra_embeds=batch.get("patch_embeds"),
+        )
+
     def prefill(model, batch, max_len=None):
         return transformer.lm_prefill(
             model, cfg, batch["tokens"],
@@ -73,6 +83,7 @@ def _transformer_api(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         init=lambda generator, device="cuda": transformer.init_lm(cfg, generator, device),
+        loss=loss,
         prefill=prefill,
         decode_step=lambda m, t, pos, c: transformer.lm_decode_step(m, cfg, t, pos, c),
         cache_init=lambda b, m, device="cuda": transformer.lm_cache_init(cfg, b, m, device),
@@ -100,19 +111,22 @@ def _transformer_api(cfg: ModelConfig) -> ModelApi:
     )
 
 
-# the SSM and hybrid families: (init, prefill, decode_step, cache_init)
+# the SSM and hybrid families: (init, loss, prefill, decode_step, cache_init)
 _RECURRENT = {
-    "ssm": (ssm.init_ssm, ssm.ssm_prefill, ssm.ssm_decode_step, ssm.ssm_cache_init),
-    "hybrid": (hybrid.init_hybrid, hybrid.hybrid_prefill,
+    "ssm": (ssm.init_ssm, ssm.ssm_loss, ssm.ssm_prefill, ssm.ssm_decode_step,
+            ssm.ssm_cache_init),
+    "hybrid": (hybrid.init_hybrid, hybrid.hybrid_loss, hybrid.hybrid_prefill,
                hybrid.hybrid_decode_step, hybrid.hybrid_cache_init),
 }
 
 
 def _recurrent_api(cfg: ModelConfig) -> ModelApi:
-    init, prefill, decode_step, cache_init = _RECURRENT[cfg.family]
+    init, loss, prefill, decode_step, cache_init = _RECURRENT[cfg.family]
     return ModelApi(
         cfg=cfg,
         init=lambda generator, device="cuda": init(cfg, generator, device),
+        loss=lambda m, batch: loss(m, cfg, batch["tokens"],
+                                   loss_mask=batch.get("loss_mask")),
         prefill=lambda m, batch, max_len=None: prefill(
             m, cfg, batch["tokens"], max_len=max_len, lengths=batch.get("lengths")),
         decode_step=lambda m, t, pos, c: decode_step(m, cfg, t, pos, c),

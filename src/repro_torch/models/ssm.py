@@ -8,8 +8,11 @@ holds one :class:`SSMLayer` per layer and loops over them in Python.
 The cache is a list with one ``{"ssm", "conv"}`` dict per layer:
 ``ssm (B, H, P, N)`` float32 and ``conv (B, K-1, conv_dim)`` in the
 compute dtype (the reference stacks the same arrays per layer).  Decode
-needs no positions: the state is O(1) in the sequence length.  Training
-(``ssm_loss``) is a later slice (ROADMAP Queue 1 item 7).
+needs no positions: the state is O(1) in the sequence length.
+``ssm_loss`` is the training loss; while gradients are recorded,
+``ssm_forward`` recomputes each layer in the backward pass
+(``common.remat``), so a step runs ``ssd_scan`` three times a layer:
+forward, recompute and the scan's own backward.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ from ..device import DeviceLike, resolve_device
 from .common import (
     Embed,
     RMSNorm,
+    chunked_xent,
     compute_dtype,
     embed_apply,
     embed_init,
     last_token_logits,
+    remat,
     rmsnorm_init,
     unembed_logits,
 )
@@ -40,6 +45,7 @@ __all__ = [
     "ssm_cache_init",
     "ssm_decode_step",
     "ssm_forward",
+    "ssm_loss",
     "ssm_prefill",
 ]
 
@@ -80,15 +86,28 @@ def init_ssm(cfg: ModelConfig, generator: torch.Generator,
                RMSNorm(rmsnorm_init(cfg.d_model, dev), cfg.norm_eps))
 
 
-@torch.no_grad()
+def _layer_forward(layer: SSMLayer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return x + mamba_apply(layer.mamba, cfg, layer.ln(x))
+
+
 def ssm_forward(model: SSM, cfg: ModelConfig,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (hidden (B, S, D), aux_loss scalar 0)."""
+    """→ (hidden (B, S, D), aux_loss scalar 0).  Each layer runs under
+    ``remat``."""
     x = embed_apply(model.embed, cfg, tokens)
     for layer in model.layers:
-        x = x + mamba_apply(layer.mamba, cfg, layer.ln(x))
+        x = remat(_layer_forward, layer, cfg, x)
     return model.final_norm(x), torch.zeros((), dtype=torch.float32,
                                             device=x.device)
+
+
+def ssm_loss(model: SSM, cfg: ModelConfig, tokens: torch.Tensor,
+             loss_mask: Optional[torch.Tensor] = None):
+    """Next-token cross entropy → (loss, {"xent", "aux": 0})."""
+    hidden, aux = ssm_forward(model, cfg, tokens)
+    mask = None if loss_mask is None else loss_mask[:, 1:]
+    xent = chunked_xent(model.embed, cfg, hidden[:, :-1], tokens[:, 1:], mask)
+    return xent, {"xent": xent, "aux": aux}
 
 
 def ssm_cache_init(cfg: ModelConfig, batch: int, max_len: int = 0,

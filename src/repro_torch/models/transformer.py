@@ -11,8 +11,11 @@ A layer's FFN is a SwiGLU, or on the MoE family (``_is_moe_layer``) a
 drops and ``lm_decode_step`` with ``no_drop=True``, as the reference does;
 ``lm_forward`` sums the router's aux loss over the layers.
 
-Entry points: ``init_lm``, ``lm_forward``, ``lm_cache_init``, ``lm_prefill``
-(forward + KV cache build) and ``lm_decode_step`` (one-token serve).  The
+Entry points: ``init_lm``, ``lm_forward``, ``lm_loss`` (next-token cross
+entropy plus the router's aux loss: training), ``lm_cache_init``,
+``lm_prefill`` (forward + KV cache build) and ``lm_decode_step``
+(one-token serve).  While gradients are recorded, ``lm_forward``
+recomputes each layer in the backward pass (``common.remat``).  The
 cache is a list with one ``{"k", "v"}`` dict per layer, each ``(B, Hkv,
 slots, Dh)``; the reference stacks the same arrays per scan position.
 
@@ -21,7 +24,7 @@ The paged cache of continuous batching (global-attention stacks only):
 block 0 the trash block), ``lm_decode_step_paged``,
 ``lm_paged_prefill_write`` and ``lm_prefill_suffix``, which prefills a
 prompt's suffix against adopted prefix blocks.  They update the pools in
-place.  Training is a later slice (ROADMAP).
+place.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ from .common import (
     attention_decode,
     attention_decode_paged,
     attention_init,
+    cast,
+    chunked_xent,
     compute_dtype,
     embed_apply,
     embed_init,
@@ -53,6 +58,7 @@ from .common import (
     mlp_init,
     paged_view,
     paged_write_rows,
+    remat,
     rmsnorm_init,
     unembed_logits,
 )
@@ -67,6 +73,7 @@ __all__ = [
     "lm_decode_step",
     "lm_decode_step_paged",
     "lm_forward",
+    "lm_loss",
     "lm_paged_cache_init",
     "lm_paged_prefill_write",
     "lm_prefill",
@@ -170,6 +177,18 @@ def _embed_inputs(model: LM, cfg: ModelConfig, tokens, extra_embeds):
     return x
 
 
+def _layer_forward(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, window: Optional[int]):
+    """One layer → (x, its router aux loss, 0 without a router)."""
+    h = layer.ln1(x)
+    x = x + attention_apply(layer.attn, cfg, h, positions, causal=True,
+                            window=window)
+    y, a = _ffn(layer, cfg, layer.ln2(x))
+    if a is None:
+        a = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, a
+
+
 def lm_forward(
     model: LM,
     cfg: ModelConfig,
@@ -177,19 +196,39 @@ def lm_forward(
     extra_embeds: Optional[torch.Tensor] = None,   # (B, I, D) VLM patch embeds
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (hidden (B, S, D), aux_loss scalar: the routers' summed over the
-    MoE layers, 0 without one)."""
+    MoE layers, 0 without one).  Each layer runs under ``remat``."""
     x = _embed_inputs(model, cfg, tokens, extra_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, window in zip(model.layers, model.windows()):
-        h = layer.ln1(x)
-        x = x + attention_apply(layer.attn, cfg, h, positions, causal=True,
-                                window=window)
-        y, a = _ffn(layer, cfg, layer.ln2(x))
-        x = x + y
-        if a is not None:
-            aux = aux + a
+        x, a = remat(_layer_forward, layer, cfg, x, positions, window)
+        aux = aux + a
     return model.final_norm(x), aux
+
+
+def lm_loss(
+    model: LM,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                          # (B, S_txt)
+    loss_mask: Optional[torch.Tensor] = None,      # (B, S_txt)
+    extra_embeds: Optional[torch.Tensor] = None,   # (B, I, D)
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy + ``router_aux_coef`` x the router aux loss
+    → (loss, {"xent", "aux"}).  With ``I`` prepended patch embeddings,
+    hidden rows ``I-1 .. I+T-2`` predict tokens ``0 .. T-1``."""
+    hidden, aux = lm_forward(model, cfg, tokens, extra_embeds)
+    n_img = 0 if extra_embeds is None else extra_embeds.shape[1]
+    t = tokens.shape[1]
+    if n_img:
+        pred = hidden[:, n_img - 1:n_img - 1 + t]
+        targets, mask = tokens, loss_mask
+    else:
+        pred = hidden[:, :-1]
+        targets = tokens[:, 1:]
+        mask = None if loss_mask is None else loss_mask[:, 1:]
+    xent = chunked_xent(model.embed, cfg, pred, targets, mask)
+    loss = xent + cfg.router_aux_coef * aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 def _slot_count(window: Optional[int], max_len: int) -> int:
@@ -257,7 +296,7 @@ def lm_prefill(
         cache.append(kv)
         attn = flash_attention(q.transpose(1, 2), kc, vc, causal=True,
                                window=window)
-        x = x + attn.transpose(1, 2).reshape(b, s, -1) @ layer.attn.wo
+        x = x + attn.transpose(1, 2).reshape(b, s, -1) @ cast(layer.attn.wo, cfg)
         x = x + _ffn(layer, cfg, layer.ln2(x))[0]
     x = model.final_norm(x)
     offset = extra_embeds.shape[1] if extra_embeds is not None else 0
@@ -403,7 +442,7 @@ def lm_prefill_suffix(
         k_view = paged_view(kv["k"], view_tbl, block_size)  # (1, Hkv, start+S, Dh)
         v_view = paged_view(kv["v"], view_tbl, block_size)
         attn = flash_attention(q.transpose(1, 2), k_view, v_view, causal=True)
-        x = x + attn.transpose(1, 2).reshape(1, s, -1) @ layer.attn.wo
+        x = x + attn.transpose(1, 2).reshape(1, s, -1) @ cast(layer.attn.wo, cfg)
         x = x + _ffn(layer, cfg, layer.ln2(x))[0]
     x = model.final_norm(x)
     return last_token_logits(model.embed, cfg, x, lengths), cache

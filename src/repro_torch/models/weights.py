@@ -29,11 +29,22 @@ exactly the matrices the reference casts at use: ``in_proj``,
 ``out_proj``, the attention and MLP matrices and the experts' ``wg``,
 ``wu``, ``wd``; ``conv_w``, ``conv_b``, ``a_log``, ``d_skip``,
 ``dt_bias``, ``norm_w``, the router and every norm stay float32.
+
+:func:`reference_layout` maps each reference name to the module's
+parameter names it stacks, which carries any per-parameter tensors across
+(:func:`named_to_reference`, :func:`named_from_reference`), and with it
+the whole **train state**: :func:`state_to_reference` writes a port train
+state (float32 master parameters, AdamW ``m``/``v``/``count``, ``step``,
+a compressor's error-feedback residual) under the names of the
+reference's train state (``params/...``, ``opt/m/...``, ``opt/v/...``,
+``opt/count``, ``step``, ``ef_residual/...``), and
+:func:`load_state_reference` loads such names, from either package's
+checkpoint, into a port train state.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,7 +58,16 @@ from .moe import MoE
 from .ssm import SSM, SSMLayer
 from .transformer import LM, DecoderLayer, _is_moe_layer, _n_scan
 
-__all__ = ["params_from_reference", "params_to_reference"]
+__all__ = [
+    "load_state_reference",
+    "named_from_reference",
+    "named_to_reference",
+    "params_from_reference",
+    "params_to_reference",
+    "reference_layout",
+    "state_reference_names",
+    "state_to_reference",
+]
 
 Array = Union[np.ndarray, torch.Tensor]
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -210,66 +230,147 @@ def _names(cfg: ModelConfig):
     return names + ["blocks/ln1", "blocks/ln2"] + attn + ffn
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+def reference_layout(model) -> Dict[str, Tuple[Tuple[int, ...], List[str]]]:
+    """``{reference name: (stack shape, [the module's parameter name of each
+    stacked entry, in C order])}`` of an LM, SSM or Hybrid; the stack shape
+    is ``()`` for an unstacked tensor (``embed/*``, ``final_norm``)."""
+    cfg = model.cfg
+    out: Dict[str, Tuple[Tuple[int, ...], List[str]]] = {
+        "embed/table": ((), ["embed.table"]),
+        "final_norm": ((), ["final_norm.weight"]),
+    }
+    if not cfg.tie_embeddings:
+        out["embed/unembed"] = ((), ["embed.unembed"])
+    attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
+    if isinstance(model, SSM):
+        lead = (cfg.n_layers,)
+        out["blocks/ln"] = (lead, [f"layers.{i}.ln.weight" for i in range(cfg.n_layers)])
+        for n in _MAMBA:
+            out[f"blocks/mamba/{n}"] = (lead, [f"layers.{i}.mamba.{n}"
+                                               for i in range(cfg.n_layers)])
+        return out
+    if isinstance(model, Hybrid):
+        n_blocks, per, mamba_pos, moe_pos, mlp_pos = _layout(cfg)
+
+        def group(prefix, module, names, positions, lead):
+            for n in names:
+                out[f"blocks/{prefix}/{n}"] = (lead, [
+                    f"layers.{b * per + j}.{module}.{n}"
+                    for b in range(n_blocks) for j in positions])
+
+        for ln in ("ln_mix", "ln_ffn"):
+            out[f"blocks/{ln}"] = ((n_blocks, per), [
+                f"layers.{i}.{ln}.weight" for i in range(cfg.n_layers)])
+        group("attn", "mixer", attn, [cfg.attn_index], (n_blocks,))
+        group("mamba", "mixer", _MAMBA, mamba_pos, (n_blocks, len(mamba_pos)))
+        if moe_pos:
+            group("moe", "ffn", _MOE, moe_pos, (n_blocks, len(moe_pos)))
+        if mlp_pos:
+            group("mlp", "ffn", _MLP, mlp_pos, (n_blocks, len(mlp_pos)))
+        return out
+    n_steps, per = _n_scan(cfg)
+    lead = (n_steps,) if per == 1 else (n_steps, per)
+    layers = range(cfg.n_layers)
+    for ln in ("ln1", "ln2"):
+        out[f"blocks/{ln}"] = (lead, [f"layers.{i}.{ln}.weight" for i in layers])
+    for n in attn:
+        out[f"blocks/attn/{n}"] = (lead, [f"layers.{i}.attn.{n}" for i in layers])
+    ffn, names = ("moe", _MOE) if _is_moe_layer(cfg) else ("mlp", _MLP)
+    for n in names:
+        out[f"blocks/{ffn}/{n}"] = (lead, [f"layers.{i}.{ffn}.{n}" for i in layers])
+    return out
+
+
+def named_to_reference(model, named: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Tensors keyed by ``model``'s parameter names (the parameters, their
+    gradients, moments or residuals) → host copies in the reference's
+    stacked layout, in their own dtype."""
+    out = {}
+    for ref, (lead, names) in reference_layout(model).items():
+        if not lead:
+            out[ref] = named[names[0]].detach().to("cpu", copy=True)
+            continue
+        ts = [named[n].detach().cpu() for n in names]
+        out[ref] = torch.stack(ts).reshape(*lead, *ts[0].shape)
+    return out
+
+
+def named_from_reference(model, ref: Mapping[str, Array]) -> Dict[str, torch.Tensor]:
+    """The inverse: ``{parameter name: tensor}`` (views of the stacked
+    tensors, where they lie) from reference-named, stacked tensors."""
+    out = {}
+    for name, (lead, names) in reference_layout(model).items():
+        t = _stacked(ref, name, lead)
+        flat = t.reshape(-1, *t.shape[len(lead):]) if lead else t[None]
+        for i, n in enumerate(names):
+            out[n] = flat[i]
+    return out
 
 
 def params_to_reference(model) -> Dict[str, np.ndarray]:
-    """The inverse: ``{name: float32 array}`` in the reference's layout."""
-    cfg = model.cfg
-    out = {"embed/table": _host(model.embed.table),
-           "final_norm": _host(model.final_norm.weight)}
-    if not cfg.tie_embeddings:
-        out["embed/unembed"] = _host(model.embed.unembed)
-    if isinstance(model, SSM):
-        out["blocks/ln"] = np.stack([_host(l.ln.weight) for l in model.layers])
-        for n in _MAMBA:
-            out[f"blocks/mamba/{n}"] = np.stack(
-                [_host(getattr(l.mamba, n)) for l in model.layers])
-        return out
-    if isinstance(model, Hybrid):
-        return {**out, **_hybrid_to_reference(model)}
+    """The inverse of :func:`params_from_reference`: ``{name: float32
+    array}`` in the reference's layout."""
+    return {n: t.float().numpy() for n, t in
+            named_to_reference(model, dict(model.named_parameters())).items()}
 
-    n_steps, per = _n_scan(cfg)
-    lead = (n_steps,) if per == 1 else (n_steps, per)
 
-    def stack(get) -> np.ndarray:
-        a = np.stack([_host(get(layer)) for layer in model.layers])
-        return a.reshape(*lead, *a.shape[1:])
+# -- the train state ------------------------------------------------------------
 
-    out["blocks/ln1"] = stack(lambda l: l.ln1.weight)
-    out["blocks/ln2"] = stack(lambda l: l.ln2.weight)
-    for n in _ATTN + (_BIAS if cfg.qkv_bias else ()):
-        out[f"blocks/attn/{n}"] = stack(lambda l, n=n: getattr(l.attn, n))
-    if _is_moe_layer(cfg):
-        for n in _MOE:
-            out[f"blocks/moe/{n}"] = stack(lambda l, n=n: getattr(l.moe, n))
-    else:
-        for n in _MLP:
-            out[f"blocks/mlp/{n}"] = stack(lambda l, n=n: getattr(l.mlp, n))
+_STATE_KEYS = ("model", "opt", "step")
+
+
+def _per_param(state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{reference prefix: per-parameter dict}`` of a train state: the
+    moments and every extra per-parameter entry (a compressor's residual)."""
+    out = {"opt/m": state["opt"]["m"], "opt/v": state["opt"]["v"]}
+    out.update({k: v for k, v in state.items() if k not in _STATE_KEYS})
     return out
 
 
-def _hybrid_to_reference(model: Hybrid) -> Dict[str, np.ndarray]:
-    cfg = model.cfg
-    n_blocks, per, mamba_pos, moe_pos, mlp_pos = _layout(cfg)
-    blocks = [model.layers[b * per:(b + 1) * per] for b in range(n_blocks)]
-
-    def stack(positions, module, names, prefix) -> Dict[str, np.ndarray]:
-        return {f"blocks/{prefix}/{n}": np.stack([
-            np.stack([_host(getattr(getattr(blk[j], module), n)) for j in positions])
-            for blk in blocks]) for n in names}
-
-    out = {
-        "blocks/ln_mix": np.stack([[_host(l.ln_mix.weight) for l in blk] for blk in blocks]),
-        "blocks/ln_ffn": np.stack([[_host(l.ln_ffn.weight) for l in blk] for blk in blocks]),
-    }
-    for n in _ATTN + (_BIAS if cfg.qkv_bias else ()):
-        out[f"blocks/attn/{n}"] = np.stack(
-            [_host(getattr(blk[cfg.attn_index].mixer, n)) for blk in blocks])
-    out.update(stack(mamba_pos, "mixer", _MAMBA, "mamba"))
-    if moe_pos:
-        out.update(stack(moe_pos, "ffn", _MOE, "moe"))
-    if mlp_pos:
-        out.update(stack(mlp_pos, "ffn", _MLP, "mlp"))
+def state_to_reference(state) -> Dict[str, torch.Tensor]:
+    """A port train state (``train.loop.make_train_state``) → host copies
+    under the reference's train-state names: ``params/<name>``,
+    ``opt/m/<name>``, ``opt/v/<name>``, ``opt/count``, ``step`` and, with a
+    compressor, ``<state_key>/<name>``; the names a checkpoint of either
+    package holds."""
+    model = state["model"]
+    out = {f"params/{n}": t for n, t in
+           named_to_reference(model, dict(model.named_parameters())).items()}
+    for prefix, named in _per_param(state).items():
+        out.update({f"{prefix}/{n}": t for n, t in
+                    named_to_reference(model, named).items()})
+    out["opt/count"] = state["opt"]["count"].detach().to("cpu", copy=True)
+    out["step"] = state["step"].detach().to("cpu", copy=True)
     return out
+
+
+def state_reference_names(state) -> List[str]:
+    """The names :func:`state_to_reference` writes, without copying."""
+    refs = list(reference_layout(state["model"]))
+    names = [f"params/{n}" for n in refs]
+    for prefix in _per_param(state):
+        names += [f"{prefix}/{n}" for n in refs]
+    return names + ["opt/count", "step"]
+
+
+@torch.no_grad()
+def load_state_reference(state, named: Mapping[str, Array]):
+    """Copy a reference-named train state (:func:`state_to_reference`'s
+    names, from either package) into ``state``: parameters, moments and
+    residuals in place, each in its own dtype and device; ``count`` and
+    ``step`` replaced.  Returns ``state``."""
+    model = state["model"]
+
+    def load(prefix, targets):
+        sub = {n[len(prefix) + 1:]: t for n, t in named.items()
+               if n.startswith(prefix + "/")}
+        for n, t in named_from_reference(model, sub).items():
+            targets[n].copy_(t)
+
+    load("params", dict(model.named_parameters()))
+    for prefix, targets in _per_param(state).items():
+        load(prefix, targets)
+    dev = state["step"].device
+    state["opt"]["count"] = _tensor(named["opt/count"]).to(dev, torch.int32)
+    state["step"] = _tensor(named["step"]).to(dev, torch.int32)
+    return state

@@ -1,18 +1,17 @@
-"""Run coordination for the serving tier: heartbeats, failure detection,
-backoff.
+"""Run coordination: heartbeats, failure detection, backoff, elastic
+restart.
 
-The port's copy of the part of ``repro.runtime.fault`` that the query
-service uses:
+The port's copy of ``repro.runtime.fault``:
 
 * every worker or replica renews a **heartbeat file** (``hb_<rank>``)
   under a run directory;
 * :class:`FailureDetector` scans heartbeats; a worker whose heartbeat is
   older than ``timeout`` is declared dead;
 * :class:`BackoffPolicy` paces the re-probing of dead replicas
-  (:class:`~repro_torch.service.health.HealthTracker`).
-
-The elastic-restart part of the reference module (``ElasticPlan``,
-``run_with_failures``) belongs to the training slice and is not copied.
+  (:class:`~repro_torch.service.health.HealthTracker`);
+* :class:`ElasticPlan` re-carves the data-parallel extent for the
+  survivors, and :func:`run_with_failures` drives training through
+  injected failures, restarting each time from the last checkpoint.
 """
 
 from __future__ import annotations
@@ -21,14 +20,17 @@ import json
 import os
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     "BackoffPolicy",
+    "ElasticPlan",
     "FailureDetector",
+    "FailureLog",
     "Heartbeat",
+    "run_with_failures",
 ]
 
 
@@ -102,3 +104,63 @@ class BackoffPolicy:
         if attempt < 0:
             raise ValueError(f"attempt must be >= 0, got {attempt}")
         return float(min(self.cap_s, self.base_s * self.multiplier ** attempt))
+
+
+@dataclass(frozen=True)
+class ElasticPlan:
+    """Mesh + sampler re-carve after a failure."""
+
+    n_dp: int
+    n_model: int
+
+    @staticmethod
+    def for_survivors(n_survivors: int, n_model: int) -> "ElasticPlan":
+        """Largest dp extent that the survivors can host (model size fixed:
+        TP groups must stay whole — a lost chip kills its whole TP group)."""
+        if n_survivors < 1:
+            raise RuntimeError("no survivors")
+        return ElasticPlan(n_dp=max(1, n_survivors), n_model=n_model)
+
+
+@dataclass
+class FailureLog:
+    events: List[dict] = field(default_factory=list)
+
+    def record(self, **kw) -> None:
+        self.events.append(dict(kw, t=time.time()))
+
+
+def run_with_failures(
+    total_steps: int,
+    train_chunk: Callable[[int, int, int], Tuple[int, dict]],
+    fail_at: Dict[int, int],
+    initial_dp: int = 4,
+) -> FailureLog:
+    """Drive training through injected failures.
+
+    ``train_chunk(start_step, until_step, n_dp) -> (reached_step, info)``
+    runs training (checkpointing inside) and returns where it stopped.
+    ``fail_at`` maps step → number of dp shards lost at that step.
+    The loop restarts each time from the last checkpoint with the reduced
+    dp extent, exactly as the coordinator would.
+    """
+    log = FailureLog()
+    n_dp = initial_dp
+    step = 0
+    pending = dict(fail_at)
+    while step < total_steps:
+        # a failure scheduled at the current step (including step 0, before
+        # any training has run) applies before the next chunk launches —
+        # the chunk must already see the reduced dp extent
+        if step in pending:
+            lost = pending.pop(step)
+            n_dp = max(1, n_dp - lost)
+            log.record(kind="failure", at=step, lost=lost, new_dp=n_dp)
+        # next failure boundary in this chunk (if any)
+        upcoming = sorted(s for s in pending if s > step)
+        until = min([total_steps] + upcoming)
+        reached, info = train_chunk(step, until, n_dp)
+        log.record(kind="chunk", start=step, until=until, reached=reached,
+                   n_dp=n_dp, **info)
+        step = reached
+    return log

@@ -680,3 +680,97 @@ def test_moe_smoke_on_the_card_matches_the_cpu(cuda, arch):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4,
                                    rtol=1e-4)
         lens = lens + 1
+
+
+# ---------------------------------------------------------------------------
+# training: gradients through the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bh,c,p,n", [(6, 16, 64, 128), (1, 1, 4, 4), (5, 7, 3, 5),
+                                      (256, 8, 64, 128)])
+def test_ssd_scan_backward_on_the_card(cuda, bh, c, p, n):
+    """The output carries a grad_fn; the backward pass launches the kernel
+    once more; ``dstates`` equals autograd through the plain version on the
+    card bit for bit, ``ddecay`` within 1e-5 of its terms' magnitude."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    g = torch.Generator(device=cuda).manual_seed(bh + c)
+    s = torch.randn((bh, c, p, n), generator=g, device=cuda).requires_grad_()
+    d = torch.rand((bh, c), generator=g, device=cuda).requires_grad_()
+    go = torch.randn((bh, c, p, n), generator=g, device=cuda)
+    before = ssd_scan_cuda.launches
+    out = ssd_scan(s, d)
+    assert out.grad_fn is not None
+    ds, dd = torch.autograd.grad(out, (s, d), go)
+    assert ssd_scan_cuda.launches == before + 2
+    s2, d2 = s.detach().clone().requires_grad_(), d.detach().clone().requires_grad_()
+    ref = ssd_scan_ref(s2, d2)
+    if c == 1:
+        assert torch.all(ds == 0) and torch.all(dd == 0)
+        return
+    ws, wd = torch.autograd.grad(ref, (s2, d2), go)
+    assert torch.equal(ds, ws)
+    terms = (ds * out.detach()).abs().sum(dim=(2, 3))
+    assert bool(torch.all((dd - wd).abs() <= 1e-5 * terms + 1e-6))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,sq,skv,window", [(8, 2, 300, 300, None),
+                                                  (4, 4, 100, 260, None),
+                                                  (4, 1, 257, 257, 64)])
+def test_flash_attention_backward_on_the_card(cuda, dtype, hq, hkv, sq, skv, window):
+    """The kernel's output carries a grad_fn; dq, dk, dv against autograd
+    through the plain version in float32 on the same values, within the
+    bound ``grad_bound_excess`` derives (float32: 1e-4)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import grad_bound_excess
+
+    dt = getattr(torch, dtype)
+    q, k, v = _fa_inputs(cuda, dt, 2, hq, hkv, sq, skv, 64)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    go = torch.randn(q.shape, device=cuda).to(dt)
+    before = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    assert out.grad_fn is not None and flash_attention_cuda.launches == before + 1
+    got = torch.autograd.grad(out, (q, k, v), go)
+    ratios = grad_bound_excess(q, k, v, go, got, True, window)
+    assert max(ratios) <= 1.0, ratios
+
+
+def test_train_smoke_on_the_card_matches_the_cpu(cuda):
+    """``launch.train`` on the card by default (jamba's smoke config: both
+    kernels and the MoE on one path), and the same state's loss and
+    gradients on the card against the CPU's in float32."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import make_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as work:
+        out = train.run(train.build_parser().parse_args(
+            ["--arch", "jamba-1.5-large-398b", "--steps", "2", "--seq-len", "64",
+             "--global-batch", "2", "--corpus-records", "40", "--workdir", work]))
+    assert out["final_step"] == 2 and str(out["trainer"].device).startswith("cuda")
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").smoke(), dtype="float32")
+    api = build_model(cfg)
+    cpu = make_train_state(api, torch.Generator().manual_seed(0), device="cpu")["model"]
+    card = make_train_state(api, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)["model"]
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 259, (2, 96)))
+    grads = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        loss, _ = api.loss(model, {"tokens": toks.to(dev)})
+        grads.append((loss, torch.autograd.grad(loss, list(model.parameters()))))
+    (lc, gc), (lg, gg) = grads
+    np.testing.assert_allclose(float(lg.detach()), float(lc.detach()), rtol=1e-4)
+    for a, b in zip(gc, gg):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4, rtol=1e-3)
+        assert bool((b != 0).any()) == bool((a != 0).any())
