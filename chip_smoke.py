@@ -33,7 +33,10 @@
    rounding of the output and of P; ``flash_attention_ref.bound_excess``),
    a bound that a variant losing one key tile must exceed, with
    ``torch.nn.functional.scaled_dot_product_attention`` timed beside it
-   and its output read under the same bound and the output-cast-only one.
+   and its output read under the same bound and the output-cast-only one;
+   also without the causal mask at whisper-small's encoder (B = 8, H =
+   12, S = 1,500, D = 64: 11 key tiles and one of 92) and its cross
+   attention (Sq = 416 against Skv = 1,500), SDPA timed without a mask.
    After the build, ptxas must report no spills in ``flash_attention.cu``,
    ``sorted_probe.cu`` and ``hash_mix.cu``, and ``cuobjdump -sass`` must
    show each redesigned kernel's instruction (``DESIGN_OPCODES``):
@@ -115,7 +118,21 @@
    have launched exactly 48 times per prefill and never in decode (launch
    counts set to 0 just before the phase).  Then the served engine under
    ``torch.profiler``, as in step 6.
-9. MoE: moonshot-v1-16b-a3b at full width cut to 2 layers, float32, card
+9. Encoder-decoder: whisper-small at full width cut to 2 encoder and 2
+   decoder layers, float32 with TF32 off, one set of weights on the card
+   and the CPU, the same seeded random frames (2 x 1,500 x 768) and two
+   ragged corpus prompts: prefill logits, the loss and every parameter's
+   gradient within ``MODEL_ATOL``/``MODEL_RTOL``, none zero on the card
+   where the CPU's is not, 6 and 12 ``flash_attention`` launches.  Then
+   whisper-small at its published size (12 + 12 layers, d_model 768,
+   335,668,224 parameters), bf16, through ``launch.serve.run`` with zero
+   frames (the audio frontend is a stub): the 8 prompts of step 6 cut to
+   at most 415 bytes (416 tokens, so that 32 new tokens fit Whisper's
+   448-token text context), served twice with the same tokens, 36
+   tensor-core ``flash_attention`` launches a prefill (12 encoder, 12
+   decoder self, 12 cross), the cross cache's bytes (12 x 2 x 8 x 12 x
+   1,500 x 64 x 2 B), and the engine profiled as in step 6.
+10. MoE: moonshot-v1-16b-a3b at full width cut to 2 layers, float32, card
    against CPU: the router's top-6 experts first (flips only at a
    probability near-tie pass), then prefill logits within
    ``MODEL_ATOL``, dropped assignments on both sides.  Then the model at
@@ -125,14 +142,16 @@
    prefill, the phase's own peak memory, dropped assignments), profiled,
    and 8 requests through ``ContinuousEngine`` on the same weights
    (prefix sharing off for MoE): every request completes; SLO percentiles.
-10. Training.  In the kernel phase: ``ssd_scan``'s backward at
+11. Training.  In the kernel phase: ``ssd_scan``'s backward at
    mamba2-1.3b's training shape (BH = 4 x 64, C = 8, P = 64, N = 128):
    the states' gradient equals autograd through the plain version on the
    card bit for bit, the decay's within 1e-5 of its terms' magnitude, the
    backward launch timed warm and cold; ``flash_attention``'s backward
    (PyTorch ops after the kernel's forward) in bf16 at yi-6b's training
    shape (B = 4, Hq = 32, Hkv = 4, S = 2,048, D = 128, causal) and at
-   gemma3-12b's window (S = 4,096, D = 256, window 1,024): dq, dk, dv
+   gemma3-12b's window (S = 4,096, D = 256, window 1,024) and, without
+   the causal mask, at whisper-small's encoder (B = 4, H = 12, S = 1,500,
+   D = 64): dq, dk, dv
    within ``grad_bound_excess``'s bound (derived from the forward's), a
    backward without ``D = rowsum(dO * O)`` outside it, SDPA's backward
    timed beside it.  Then, after the MoE phases: yi-6b,
@@ -151,10 +170,11 @@
    tensor-core ``flash_attention``), one more step under the profiler
    (the attention backward's share) and the final checkpoint's seconds
    and bytes (then deleted).
-11. A ``{"kernels": [...]}`` line (``launches`` summed over the paths:
+12. A ``{"kernels": [...]}`` line (``launches`` summed over the paths:
    ``hash_mix`` in the service, ``digest_ids`` and training's batch
    verify, ``flash_attention`` in yi-6b's static and continuous serving,
-   moonshot's and training, ``ssd_scan`` in serving and training), the
+   whisper-small's, moonshot's and training, ``ssd_scan`` in serving and
+   training), the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
    Any failure exits non-zero before it.
 
@@ -172,6 +192,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -212,16 +233,38 @@ TIES_KS = (1, 32, 1024, 2048)
 PADS_ROWS = 5_000          # ties plane cut to 5,000 rows ...
 PADS_K = 8_192             # ... at k > N: pads, lists in global memory
 BF16_FLOPS_PER_S = 989e12  # tensor-core bf16 peak (H100 SXM, dense)
-# flash_attention cases: (name, B, Hq, Hkv, S, D, window, start).  S query
-# rows are the last S of start + S keys (off = start); a case with start > 0
-# is suffix prefill's, k and v gathered from a shuffled block pool of
-# CONT_BLOCK-row blocks (``paged_view``) as ``lm_prefill_suffix`` gathers them
-FA_YI = ("yi-6b", 8, 32, 4, 2048, 128, None, 0)
-FA_GEMMA = ("gemma3-12b", 1, 16, 8, 4096, 256, 1024, 0)
-FA_MOONSHOT = ("moonshot-v1-16b-a3b", 8, 16, 16, 2048, 128, None, 0)
-FA_SUFFIX = (("yi-6b suffix", 1, 32, 4, 512, 128, None, 1536),
-             ("yi-6b suffix short", 1, 32, 4, 48, 128, None, 1024),
-             ("yi-6b suffix unaligned", 1, 32, 4, 208, 128, None, 1040))
+
+
+class FaCase(NamedTuple):
+    """A flash_attention case: Sq query rows, the last Sq positions of Skv
+    keys (off = Skv - Sq).  ``paged``: k and v gathered from a shuffled
+    block pool of CONT_BLOCK-row blocks (``paged_view``), as
+    ``lm_prefill_suffix`` gathers them; otherwise every operand is a
+    (B, S, H, D) projection viewed as (B, H, S, D)."""
+    name: str
+    b: int
+    hq: int
+    hkv: int
+    sq: int
+    skv: int
+    d: int
+    window: Optional[int] = None
+    causal: bool = True
+    paged: bool = False
+
+
+FA_YI = FaCase("yi-6b", 8, 32, 4, 2048, 2048, 128)
+FA_GEMMA = FaCase("gemma3-12b", 1, 16, 8, 4096, 4096, 256, window=1024)
+FA_MOONSHOT = FaCase("moonshot-v1-16b-a3b", 8, 16, 16, 2048, 2048, 128)
+FA_SUFFIX = (FaCase("yi-6b suffix", 1, 32, 4, 512, 2048, 128, paged=True),
+             FaCase("yi-6b suffix short", 1, 32, 4, 48, 1072, 128, paged=True),
+             FaCase("yi-6b suffix unaligned", 1, 32, 4, 208, 1248, 128, paged=True))
+# whisper-small's prefill: the encoder over 1,500 frames (11 key tiles of
+# 128 and one of 92, 92 query rows in the last tile) and the cross
+# attention of the decoder's longest served prompt (WHISPER_PROMPT_BYTES + 1
+# tokens) against them; D = 64, no mask
+FA_WHISPER = (FaCase("whisper-small encoder", 8, 12, 12, 1500, 1500, 64, causal=False),
+              FaCase("whisper-small cross", 8, 12, 12, 416, 1500, 64, causal=False))
 # flash_attention in bfloat16 against the plain version's float32 output on
 # the same values (``bound_excess`` of the plain version's module):
 #   CUDA-core route: |err| <= u |ref| + atol, u = 2^-8 the bf16 cast's
@@ -248,6 +291,13 @@ MODEL_ATOL = MODEL_RTOL = 1e-3  # float32 logits, card vs CPU, 2 layers
 SERVE_LENGTHS = (17, 64, 160, 384, 768, 1152, 1600, 2047)  # prompt bytes
 SERVE_NEW_TOKENS = 32
 SERVE_MAX_LEN = 4096
+# whisper-small is served within its published 448-token text context
+# (arXiv:2212.04356): the prompts are cut to 415 bytes (416 tokens with
+# BOS), so that prompt plus SERVE_NEW_TOKENS fits
+WHISPER = "whisper-small"
+WHISPER_TEXT_CTX = 448
+WHISPER_PROMPT_BYTES = WHISPER_TEXT_CTX - SERVE_NEW_TOKENS - 1
+WHISPER_LENGTHS = tuple(min(n, WHISPER_PROMPT_BYTES) for n in SERVE_LENGTHS)
 PLANE_CHUNK = 1 << 23      # rows generated (and counted) per step on the card
 PLAIN_ELEMS = 1 << 26      # (query, row) pairs per block of the plain version
 # __popc throughput of compute capability 9.0: 16 results per clock per SM
@@ -627,10 +677,36 @@ def kernel_phase(seed: int):
     return main, hm
 
 
-def attention_case(case, seed: int):
+def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """(query, key) pairs a mask leaves visible: row p sits at position
+    p + Skv - Sq and sees keys j < Skv with j <= it (causal) and j > it -
+    window."""
+    off, pairs = skv - sq, 0
+    for p in range(sq):
+        hi = min(p + off + 1, skv) if causal else skv
+        lo = max(0, p + off - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo)
+    return pairs
+
+
+def sdpa_mask(case: FaCase, dev):
+    """SDPA's boolean mask of ``case``, or None where ``is_causal`` (a
+    causal case with Sq == Skv and no window) or no mask says it."""
+    off = case.skv - case.sq
+    if not off and case.window is None:
+        return None
+    if not case.causal and case.window is None:
+        return None
+    i = torch.arange(case.sq, device=dev)[:, None] + off
+    j = torch.arange(case.skv, device=dev)[None, :]
+    vis = j > i - (case.window or case.skv + abs(off) + 1)
+    return vis & (j <= i) if case.causal else vis
+
+
+def attention_case(case: FaCase, seed: int):
     """Hold flash_attention's kernel to its plain version in bfloat16 on
     the model's (B, S, H, D) layout viewed as (B, H, S, D) (k and v of a
-    suffix case gathered from a block pool); time it, the plain version
+    paged case gathered from a block pool); time it, the plain version
     and scaled_dot_product_attention, and read SDPA's output under the
     same bounds."""
     import torch.nn.functional as F
@@ -638,8 +714,8 @@ def attention_case(case, seed: int):
     from repro_torch.kernels.flash_attention.ref import bound_excess, flash_attention_ref
     from repro_torch.models.common import paged_view
 
-    name, b, hq, hkv, s, d, window, off = case
-    sk = off + s
+    name, b, hq, hkv, s, sk, d, window, causal, paged = case
+    off = sk - s
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 3)
@@ -649,7 +725,7 @@ def attention_case(case, seed: int):
         return x.transpose(1, 2)
 
     q = make(hq, s)
-    if off:
+    if paged:
         n_blocks = sk // CONT_BLOCK
         table = torch.randperm(2 * n_blocks, generator=g, device=dev)[:n_blocks] + 1
         pool_rows = (2 * n_blocks + 1) * CONT_BLOCK
@@ -661,25 +737,25 @@ def attention_case(case, seed: int):
     path = route(q, k, v)
     if path != "tensor_core":
         fail(f"flash_attention {name}: the serving layout took the {path} route")
-    mask = None
-    if off or window is not None:
-        i = torch.arange(s, device=dev)[:, None] + off
-        j = torch.arange(sk, device=dev)[None, :]
-        mask = (j <= i) & (j > i - (window or sk + 1))
+    mask = sdpa_mask(case, dev)
+    mode = dict(causal=causal, window=window)
 
     def sdpa():
         return F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
 
-    out = flash_attention_cuda(q, k, v, causal=True, window=window).float()
+    out = flash_attention_cuda(q, k, v, **mode).float()
     qf, kf, vf = q.float(), k.float(), v.float()
-    ref = flash_attention_ref(qf, kf, vf, causal=True, window=window)
-    abs_v = flash_attention_ref(qf, kf, vf.abs(), causal=True, window=window)
+    ref = flash_attention_ref(qf, kf, vf, **mode)
+    abs_v = flash_attention_ref(qf, kf, vf.abs(), **mode)
     err, ratio = float((out - ref).abs().max()), bound_excess(out, ref, abs_v)
-    # keys 0..FA_DROP-1 lost: the rows that saw them, against the same rows
-    rows = (slice(None), slice(None), slice(max(0, FA_DROP - off), None))
+    # keys 0..FA_DROP-1 lost: the rows that saw them (every row without the
+    # causal mask), against the same rows
+    r0 = max(0, FA_DROP - off) if causal else 0
+    rows = (slice(None), slice(None), slice(r0, None))
     keys = (slice(None), slice(None), slice(FA_DROP, None))
-    lost = flash_attention_ref(qf[rows], kf[keys], vf[keys], causal=True, window=window)
+    lost = flash_attention_ref(qf[rows], kf[keys], vf[keys], **mode)
     wrong = bound_excess(lost, ref[rows], abs_v[rows])
     lib = sdpa().float()
     lib_derived, lib_cast = bound_excess(lib, ref, abs_v), bound_excess(lib, ref)
@@ -695,23 +771,20 @@ def attention_case(case, seed: int):
         fail(f"flash_attention {name}: the bound passes a wrong variant ({tol})")
     del out, ref, abs_v, lost, lib, qf, kf, vf
     before = flash_attention_cuda.tc_launches
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True,
-                                              window=window), 20, warmup=2)
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **mode), 20, warmup=2)
     if flash_attention_cuda.tc_launches - before != 22:
         fail(f"flash_attention {name}: timed launches left the tensor-core route")
-    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True,
-                                                window=window), 2, warmup=1)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **mode), 2, warmup=1)
     library = cuda_ms(sdpa, 20, warmup=2)
     # the visible (query, key) pairs of this mask, two products of D each
-    w = sk if window is None else window
-    pairs = sum(min(p + off + 1, w) for p in range(s))
-    flops = 4 * b * hq * d * pairs
+    flops = 4 * b * hq * d * visible_pairs(s, sk, causal, window)
     nbytes = 2 * b * d * (2 * hq * s + 2 * hkv * sk)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     print(f"flash_attention[{name}]: B={b} Hq={hq} Hkv={hkv} Sq={s} Skv={sk} D={d} "
-          f"window={window} bf16 causal max_abs_err={err:.6g} ({tol}); "
+          f"window={window} bf16 {'causal' if causal else 'non-causal'} "
+          f"max_abs_err={err:.6g} ({tol}); "
           f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms(sdpa)={library:.6f} "
           f"flops={flops} bytes={nbytes} bound_ms={bnd:.6f} ({by}) "
           f"tflops={flops / ms / 1e9:.1f}", flush=True)
@@ -898,19 +971,29 @@ def model_phase(work: Path, seed: int, cases, wrappers) -> None:
         torch.cuda.empty_cache()
 
 
+def prefill_launches(cfg) -> int:
+    """The model kernel's launches in one prefill: one per layer, and on
+    the encoder-decoder family one per encoder layer and two per decoder
+    layer (self and cross attention)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
-                     max_len: int = SERVE_MAX_LEN):
+                     max_len: int = SERVE_MAX_LEN, lengths=SERVE_LENGTHS):
     """``arch`` at its published widths and full depth, bfloat16, through
-    launch.serve.run; ``wrapper``'s kernel must launch exactly once per
-    layer per prefill.  Returns its launches over the phase, the served
-    engine (for callers that go on serving its model) and the tokens of
-    the first run."""
+    launch.serve.run with the corpus prompts of ``lengths`` bytes;
+    ``wrapper``'s kernel must launch exactly ``prefill_launches`` times per
+    prefill and never in decode.  Returns its launches over the phase, the
+    served engine (for callers that go on serving its model) and the
+    tokens of the first run."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.moe import MoE, monitor
 
     name = wrapper.__name__.removesuffix("_cuda")
-    prompts = corpus_prompts(work, SERVE_LENGTHS)
+    prompts = corpus_prompts(work, lengths)
     args = serve.build_parser().parse_args([
         "--arch", arch, "--full-config", "--device", "cuda",
         "--seed", str(seed), "--max-new-tokens", str(SERVE_NEW_TOKENS),
@@ -935,10 +1018,12 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
     for row in runs[0]["token_ids"]:
         if not row or any(not 0 <= t < vocab for t in row):
             fail(f"{arch} serving: bad token row {row[:8]}")
-    want = 2 * out["n_layers"]
+    engine = out.pop("engine")
+    per_prefill = prefill_launches(engine.cfg)
+    want = 2 * per_prefill
     if launches != want:
         fail(f"{arch} serving: {launches} {name} launches, want {want} "
-             f"(one per layer per prefill, none in decode)")
+             f"({per_prefill} per prefill, none in decode)")
     if routed and tc_launches != want:
         fail(f"{arch} serving: {tc_launches} of {launches} {name} launches on "
              f"the tensor-core route, want all")
@@ -947,8 +1032,9 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
               f"{out['prompt_tokens']}; prefill_ms={r['prefill_ms']:.3f} "
               f"decode {r['decode_steps']} steps in {r['decode_ms']:.3f} ms = "
               f"{r['decode_tokens_per_s']:.1f} tokens/s; card: {card}", flush=True)
-    engine = out.pop("engine")
-    moe = ""
+    extra = ""
+    if engine.cfg.family == "encdec":
+        extra = encdec_cache_check(engine, prompts, wrapper, max_len, per_prefill)
     if any(isinstance(m, MoE) for m in engine.model.modules()):
         # the served prefill again, its routing recorded (decode drops nothing)
         toks, lens = engine._pad_prompts([engine.tok.encode(p, add_eos=False)
@@ -957,7 +1043,7 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
             engine.api.prefill(engine.model, {
                 "tokens": torch.from_numpy(toks).cuda(),
                 "lengths": torch.from_numpy(lens).cuda()}, max_len=max_len)
-        moe = (f"; MoE assignments dropped in one prefill (B={len(prompts)} x "
+        extra = (f"; MoE assignments dropped in one prefill (B={len(prompts)} x "
                f"{toks.shape[1]} tokens, {len(calls)} MoE layers): "
                f"{int(sum(c.dropped for c in calls))} (decode: no drop)")
         del calls
@@ -967,13 +1053,126 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
           f"allocated, max_len {max_len}) peak_allocated={peak} "
           f"(allocated at the phase's start: {base}; own peak "
           f"{peak - base}); {name} launches "
-          f"{launches} ({launches // 2} per prefill"
+          f"{launches} ({per_prefill} per prefill"
           f"{f', {tc_launches} on the tensor-core route' if routed else ''})"
-          f"{moe}; tokens identical over 2 runs; {secs:.1f} s", flush=True)
+          f"{extra}; tokens identical over 2 runs; {secs:.1f} s", flush=True)
     profile_generate(engine, prompts, card, arch)
     del out
     torch.cuda.empty_cache()
     return launches, engine, runs[0]["token_ids"]
+
+
+def encdec_cache_check(engine, prompts, wrapper, max_len: int, per_prefill: int) -> str:
+    """The served encoder-decoder prefill once more, alone: its kernel
+    launches (all on the tensor-core route) and its caches' bytes, the
+    cross cache's against L x 2 x B x Hkv x frames x Dh x 2 B."""
+    cfg = engine.cfg
+    toks, lens = engine._pad_prompts([engine.tok.encode(p, add_eos=False)
+                                      for p in prompts])
+    b = len(prompts)
+    before = (wrapper.launches, wrapper.tc_launches)
+    _, cache = engine.api.prefill(engine.model, {
+        "tokens": torch.from_numpy(toks).cuda(), "lengths": torch.from_numpy(lens).cuda(),
+        "frames": torch.zeros((b, cfg.enc_frames, cfg.d_model), device="cuda")},
+        max_len=max_len)
+    torch.cuda.synchronize()
+    one = (wrapper.launches - before[0], wrapper.tc_launches - before[1])
+    nbytes = {part: sum(t.nbytes for t in kv.values()) for part, kv in cache.items()}
+    want = 2 * cfg.n_layers * b * cfg.n_kv_heads * cfg.enc_frames * cfg.resolved_head_dim * 2
+    del cache
+    if one != (per_prefill, per_prefill):
+        fail(f"{cfg.name} prefill: {one[0]} launches ({one[1]} tensor-core), want "
+             f"{per_prefill}, all tensor-core")
+    if nbytes["cross"] != want:
+        fail(f"{cfg.name} prefill: cross cache {nbytes['cross']} B, want {want}")
+    return (f"; one more prefill (B={b} x {toks.shape[1]} tokens against "
+            f"{cfg.enc_frames} frames): {one[1]} tensor-core launches (encoder "
+            f"{cfg.n_enc_layers}, decoder self {cfg.n_layers}, cross {cfg.n_layers}), "
+            f"cross cache {nbytes['cross']} B (L x 2 x B x Hkv x {cfg.enc_frames} x "
+            f"{cfg.resolved_head_dim} x 2 B), self cache {nbytes['self']} B")
+
+
+def encdec_model_check(work: Path, seed: int) -> None:
+    """whisper-small at full width cut to ``MODEL_LAYERS`` encoder and
+    ``MODEL_LAYERS`` decoder layers, float32 with TF32 off, weights made
+    once on the CPU and copied to the card; the same seeded random frames
+    (B = 2 x 1,500 x 768) and two ragged corpus prompts on both.  Prefill
+    logits card vs CPU within ``MODEL_ATOL``/``MODEL_RTOL``, 3
+    ``flash_attention`` launches a layer pair; then the loss and every
+    parameter's gradient within the same tolerances, none zero on the card
+    where the CPU's is not, 6 launches a layer pair (forward and the
+    recompute of each block)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda as fa
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(WHISPER), n_layers=MODEL_LAYERS,
+                              n_enc_layers=MODEL_LAYERS, dtype="float32")
+    api = build_model(cfg)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    cpu_model = api.init(g, "cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    toks, lens = prompt_batch(corpus_prompts(work, TRAIN_PARITY_LENGTHS))
+    batch = {"frames": torch.randn((2, cfg.enc_frames, cfg.d_model), generator=g),
+             "tokens": toks, "lengths": lens,
+             "loss_mask": (torch.arange(toks.shape[1])[None, :] < lens[:, None]).float()}
+    card_batch = {k: t.cuda() for k, t in batch.items()}
+    want, _ = api.prefill(cpu_model, batch)
+    fa.launches = 0
+    got, _ = api.prefill(card_model, card_batch)
+    torch.cuda.synchronize()
+    prefill_n = fa.launches
+    got = got.cpu()
+    if got.shape != (2, cfg.vocab_size) or not torch.isfinite(got).all():
+        fail(f"{WHISPER} check: logits {tuple(got.shape)} not finite or misshaped")
+    err = float((got - want).abs().max())
+    for m in (cpu_model, card_model):
+        for p in m.parameters():
+            p.requires_grad_(True)
+    loss_c, _, grads_c = _loss_and_grads(api, cpu_model, batch)
+    fa.launches = 0
+    loss_g, _, grads_g = _loss_and_grads(api, card_model, card_batch)
+    torch.cuda.synchronize()
+    loss_n = fa.launches
+    worst, worst_rel, dead, bad = 0.0, 0.0, [], []
+    for n, wg in grads_c.items():
+        gg = grads_g[n].cpu()
+        if not torch.isfinite(gg).all():
+            fail(f"{WHISPER} check: gradient of {n} not finite on the card")
+        worst = max(worst, float((gg - wg).abs().max()))
+        worst_rel = max(worst_rel, float((gg - wg).norm() / max(float(wg.norm()), 1e-30)))
+        if bool((wg != 0).any()) and not bool((gg != 0).any()):
+            dead.append(n)
+        if not torch.allclose(gg, wg, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+            bad.append(n)
+    per_pair = 3
+    print(f"model check: {WHISPER} full width, {MODEL_LAYERS} encoder + {MODEL_LAYERS} "
+          f"decoder layers, float32, allow_tf32=False; frames 2 x {cfg.enc_frames} x "
+          f"{cfg.d_model} (seeded randn), prompts {lens.tolist()} tokens; card vs CPU "
+          f"prefill logits max_abs_err={err:.6g}; loss card {loss_g:.7g} CPU "
+          f"{loss_c:.7g}; {len(grads_c)} parameter gradients: max_abs_err={worst:.6g}, "
+          f"worst relative norm error {worst_rel:.3g} (atol {MODEL_ATOL}, rtol "
+          f"{MODEL_RTOL}), zero on the card where non-zero on the CPU: {len(dead)}; "
+          f"flash_attention launches: prefill {prefill_n}, loss and gradients {loss_n}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not torch.allclose(got, want, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+        fail(f"{WHISPER} check: card logits differ from the CPU's (max {err})")
+    if not abs(loss_g - loss_c) <= MODEL_ATOL + MODEL_RTOL * abs(loss_c):
+        fail(f"{WHISPER} check: loss {loss_g} on the card, {loss_c} on the CPU")
+    if dead or bad:
+        fail(f"{WHISPER} check: gradients cut off {dead[:5]} or differing {bad[:5]}")
+    if (prefill_n, loss_n) != (per_pair * MODEL_LAYERS, 2 * per_pair * MODEL_LAYERS):
+        fail(f"{WHISPER} check: {prefill_n} and {loss_n} flash_attention launches, want "
+             f"{per_pair * MODEL_LAYERS} and {2 * per_pair * MODEL_LAYERS}")
+    del cpu_model, card_model, grads_c, grads_g, card_batch
+    torch.cuda.empty_cache()
 
 
 def profile_generate(engine, prompts, card: str, arch: str) -> None:
@@ -1616,12 +1815,15 @@ def moe_serving_phase(work: Path, seed: int, card: str) -> int:
 
 # -- training ---------------------------------------------------------------
 #
-# Backward cases: (name, B, Hq, Hkv, S, D, window).  yi-6b's training shape
-# (B = 4 sequences of 2,048 tokens) and gemma3-12b's sliding-window layer
-# (B = 1, S = 4,096, window 1,024).  The ssd_scan backward at mamba2-1.3b's
-# training shape: BH = 4 x 64 heads, C = 8 chunks of 256.
-FA_TRAIN = ("yi-6b train", 4, 32, 4, 2048, 128, None)
-FA_TRAIN_WINDOW = ("gemma3-12b window", 1, 16, 8, 4096, 256, 1024)
+# Backward cases (FaCase, Sq = Skv).  yi-6b's training shape (B = 4
+# sequences of 2,048 tokens), gemma3-12b's sliding-window layer (B = 1, S =
+# 4,096, window 1,024) and whisper-small's encoder over 1,500 frames (B =
+# 4, no mask).  The ssd_scan backward at mamba2-1.3b's training shape: BH =
+# 4 x 64 heads, C = 8 chunks of 256.
+FA_TRAIN = FaCase("yi-6b train", 4, 32, 4, 2048, 2048, 128)
+FA_TRAIN_WINDOW = FaCase("gemma3-12b window", 1, 16, 8, 4096, 4096, 256, window=1024)
+FA_TRAIN_WHISPER = FaCase("whisper-small encoder train", 4, 12, 12, 1500, 1500, 64,
+                          causal=False)
 SSD_TRAIN = ("train", 256, 8, 64, 128)
 TRAIN_PARITY = ("yi-6b", "moonshot-v1-16b-a3b", "mamba2-1.3b")
 TRAIN_PARITY_LENGTHS = (255, 97)  # prompt bytes of the parity batch
@@ -1687,7 +1889,7 @@ def ssd_scan_backward_case(seed: int):
     return dict(ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bnd, whole_ms=whole)
 
 
-def attention_backward_case(case, seed: int):
+def attention_backward_case(case: FaCase, seed: int):
     """flash_attention's backward (grad.py, PyTorch ops after the kernel's
     forward) in bfloat16 at a training shape: dq, dk, dv within the bound
     ``grad_bound_excess`` derives from the forward's, against autograd
@@ -1700,7 +1902,7 @@ def attention_backward_case(case, seed: int):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import grad_bound_excess
 
-    name, b, hq, hkv, s, d, window = case
+    name, b, hq, hkv, s, _, d, window, causal, _ = case
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 11)
@@ -1709,41 +1911,38 @@ def attention_backward_case(case, seed: int):
     d_out = torch.randn((b, hq, s, d), generator=g, device=dev).to(torch.bfloat16)
     if route(q, k, v) != "tensor_core":
         fail(f"flash_attention backward {name}: the forward left the tensor-core route")
-    out = flash_attention(q, k, v, causal=True, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window)
     if out.grad_fn is None:
         fail("flash_attention: the kernel's output carries no grad_fn")
     grads = torch.autograd.grad(out, (q, k, v), d_out)
-    ratios = grad_bound_excess(q, k, v, d_out, grads, True, window)
+    ratios = grad_bound_excess(q, k, v, d_out, grads, causal, window)
     wrong = grad_bound_excess(q, k, v, d_out, flash_attention_bwd(
-        q.detach(), k.detach(), v.detach(), torch.zeros_like(out), d_out, True, window),
-        True, window)
+        q.detach(), k.detach(), v.detach(), torch.zeros_like(out), d_out, causal,
+        window), causal, window)
     del grads
     if not max(ratios) <= 1.0:
         fail(f"flash_attention backward {name}: dq, dk, dv at {ratios} of the bound")
     if not max(wrong) > 1.0:
         fail(f"flash_attention backward {name}: the bound passes a backward without D")
     qd, kd, vd, od = (t.detach() for t in (q, k, v, out))
-    ms = cuda_ms(lambda: flash_attention_bwd(qd, kd, vd, od, d_out, True, window), 5,
+    ms = cuda_ms(lambda: flash_attention_bwd(qd, kd, vd, od, d_out, causal, window), 5,
                  warmup=1)
-    fwd = cuda_ms(lambda: flash_attention_cuda(qd, kd, vd, True, window), 10)
-    mask = None
-    if window is not None:
-        i = torch.arange(s, device=dev)[:, None]
-        j = torch.arange(s, device=dev)[None, :]
-        mask = (j <= i) & (j > i - window)
+    fwd = cuda_ms(lambda: flash_attention_cuda(qd, kd, vd, causal, window), 10)
+    mask = sdpa_mask(case, dev)
     lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                             is_causal=mask is None, enable_gqa=True)
+                                             is_causal=causal and mask is None,
+                                             enable_gqa=True)
     library = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), d_out,
                                                   retain_graph=True), 5, warmup=1)
-    w = s if window is None else window
-    pairs = sum(min(p + 1, w) for p in range(s))
+    pairs = visible_pairs(s, s, causal, window)
     flops = 2 * b * hq * d * pairs * 6   # S twice (lse, then P), dP, dV, dQ, dK
     nbytes = 2 * b * d * (3 * hq * s + 4 * hkv * s)  # q, out, dO, k, v in; dq, dk, dv out
     bnd, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                   (flops / F32_FLOPS_PER_S * 1e3, "operations"))
     tc_bnd = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
     print(f"flash_attention backward[{name}]: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
-          f"window={window} bf16 causal; dq, dk, dv at {', '.join(f'{r:.4g}' for r in ratios)} "
+          f"window={window} bf16 {'causal' if causal else 'non-causal'}; dq, dk, dv at "
+          f"{', '.join(f'{r:.4g}' for r in ratios)} "
           f"of the derived bound (a backward without D reads "
           f"{', '.join(f'{r:.4g}' for r in wrong)}); backward_ms={ms:.6f} (PyTorch ops, "
           f"float32 products) forward kernel_ms={fwd:.6f} library_ms(sdpa backward)="
@@ -2068,13 +2267,14 @@ def main() -> None:
     probe, hm = kernel_phase(args.seed)
     tani = tanimoto_phase(args.seed)
     attn = attention_case(FA_YI, args.seed)
-    for case in (FA_GEMMA, FA_MOONSHOT, *FA_SUFFIX):
+    for case in (FA_GEMMA, FA_MOONSHOT, *FA_SUFFIX, *FA_WHISPER):
         attention_case(case, args.seed)
     ssd = ssd_scan_case(SSD_PREFILL, args.seed)
     ssd_scan_case(SSD_LONG, args.seed)
     ssd_scan_backward_case(args.seed)
     fa_bwd = attention_backward_case(FA_TRAIN, args.seed)
     attention_backward_case(FA_TRAIN_WINDOW, args.seed)
+    attention_backward_case(FA_TRAIN_WHISPER, args.seed)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     wrappers = {"sorted_probe": sorted_probe_cuda, "hash_mix": hash_mix_cuda,
@@ -2115,6 +2315,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         print(f"SSM phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
+        encdec_model_check(Path(work), args.seed)
+        fa_whisper, engine, _ = lm_serving_phase(
+            Path(work), args.seed, WHISPER, flash_attention_cuda, card,
+            max_len=WHISPER_TEXT_CTX, lengths=WHISPER_LENGTHS)
+        del engine
+        torch.cuda.empty_cache()
+        print(f"encoder-decoder phases: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
         moe_model_check(Path(work), args.seed, card)
         fa_moe = moe_serving_phase(Path(work), args.seed, card)
         print(f"MoE phases: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2132,12 +2340,14 @@ def main() -> None:
     train_total = {k: sum(step[k] for t in trained.values() for step in t["launches"])
                    for k in ("flash_attention", "ssd_scan", "hash_mix", "sorted_probe")}
     launches["hash_mix"] += digest_launches + train_total["hash_mix"]
-    launches["flash_attention"] = fa_static + fa_cont + fa_moe + train_total["flash_attention"]
+    launches["flash_attention"] = (fa_static + fa_cont + fa_moe + fa_whisper
+                                   + train_total["flash_attention"])
     launches["ssd_scan"] += train_total["ssd_scan"]
     print(f"launches by path: hash_mix serve_index {hm_serving} + digest_ids "
           f"{digest_launches} + training's batch verify {train_total['hash_mix']}; "
           f"flash_attention yi-6b static {fa_static} + yi-6b continuous {fa_cont} + "
-          f"moonshot static and continuous {fa_moe} + training "
+          f"moonshot static and continuous {fa_moe} + whisper-small static "
+          f"{fa_whisper} + training "
           f"{train_total['flash_attention']}; ssd_scan mamba2 serving + training "
           f"{train_total['ssd_scan']}; sorted_probe in training "
           f"{train_total['sorted_probe']} (the launcher's index is in memory)", flush=True)

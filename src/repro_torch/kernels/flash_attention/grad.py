@@ -45,10 +45,11 @@ _SCORE_ELEMS = 1 << 26  # elements of one chunk's score block (256 MiB float32)
 def row_span(lo: int, hi: int, sq: int, off: int, causal: bool,
              window: Optional[int]):
     """Query rows ``[r0, r1)`` that see at least one key of ``[lo, hi)``
-    (row ``i`` sits at position ``i + off``)."""
-    p_min = lo if causal else 0
+    (row ``i`` sits at position ``i + off``; ``off`` < 0 when ``Sq >
+    Skv``).  Without the causal mask no row is too early for a key."""
+    r0 = max(0, min(sq, lo - off)) if causal else 0
     p_max = hi - 2 + window if window is not None else sq + off
-    return max(0, min(sq, p_min - off)), max(0, min(sq, p_max - off + 1))
+    return r0, max(0, min(sq, p_max - off + 1))
 
 
 def _visible(rows: torch.Tensor, keys: torch.Tensor, causal: bool,
@@ -86,7 +87,8 @@ def flash_attention_bwd(q, k, v, out, d_out, causal: bool = True,
         hi = min(skv, lo + kc)
         r0, r1 = row_span(lo, hi, sq, off, causal, window)
         if r0 < r1:
-            vis = _visible(pos[r0 + off:r1 + off], pos[lo:hi], causal, window)
+            rows = torch.arange(r0 + off, r1 + off, device=dev)  # their positions
+            vis = _visible(rows, pos[lo:hi], causal, window)
             chunks.append((lo, hi, r0, r1, vis))
 
     def scores(lo, hi, r0, r1, vis):

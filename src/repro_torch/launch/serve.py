@@ -3,12 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --full-config --seed 0
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --continuous --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --full-config --max-len 448
 
 Builds the requested architecture (its reduced smoke config unless
 ``--full-config``) with random weights drawn on ``--device`` from
 ``--seed``, and serves the prompts through the static :class:`Engine`
 ``--repeats`` times, reporting prefill and decode timings.  ``--device``
-defaults to ``cuda``; the CPU is used only when asked for.
+defaults to ``cuda``; the CPU is used only when asked for.  The VLM and
+encoder-decoder families have stub frontends (as in the reference): the
+engine feeds zero patch embeddings or zero audio frames.
 
 ``--continuous`` serves through the paged-KV continuous-batching engine
 instead (:mod:`repro_torch.serve.scheduler`): the prompts are submitted as
@@ -18,8 +21,10 @@ by ``--block-size`` KV blocks (the pool sized as the reference sizes it:
 2), and the report adds the TTFT/inter-token SLO percentiles and the
 prefix-cache counters.  Prompts that share a block-aligned prefix share
 its KV through the prefix cache (``--no-prefix-cache`` turns sharing off;
-greedy tokens are the same either way).  :func:`run` drives either mode
-in-process and returns a summary.
+greedy tokens are the same either way).  Families without a paged
+decode step (sliding-window layers, SSM, hybrid, encoder-decoder) refuse
+``--continuous``.  :func:`run` drives either mode in-process and returns a
+summary.
 """
 
 from __future__ import annotations
@@ -80,6 +85,9 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
         cfg = cfg.smoke()
     if cfg.family == "vlm":
         print("note: vlm frontend stubbed — serving text-only prompts")
+    if cfg.family == "encdec":
+        print(f"note: audio frontend stubbed — the encoder reads {cfg.enc_frames} "
+              "zero frames")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     t0 = time.perf_counter()
@@ -143,7 +151,8 @@ def _run_continuous(args, cfg, model, dev) -> Dict[str, object]:
     if not api.supports_paged:
         raise SystemExit(
             f"--arch {args.arch} has no paged-KV decode path (windowed "
-            "attention or non-transformer family); drop --continuous")
+            "attention, or the SSM, hybrid or encoder-decoder family); drop "
+            "--continuous")
     spec = paged_spec(args.max_len, args.block_size, args.max_slots,
                       args.prefix_cache)
     eng = ContinuousEngine(

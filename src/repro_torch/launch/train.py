@@ -12,7 +12,8 @@ corpus → the byte-offset index (``build_index``, an in-memory
 with catalog checkpoints and heartbeats under ``--workdir``.  The flags
 are the reference's, plus ``--device`` (``cuda`` by default; the CPU only
 when asked for) and ``--layers``.  ``--mesh`` takes ``1x1`` only (the
-distribution layer is ROADMAP Queue 1 item 10).  :func:`run` drives it
+distribution layer is ROADMAP Queue 1 item 10).  ``--arch whisper-small``
+raises: the batches carry no audio frames (``Trainer``).  :func:`run` drives it
 in-process and returns a summary with the history and the trainer.
 """
 
@@ -29,7 +30,7 @@ from ..core.sdfgen import CorpusSpec, generate_corpus
 from ..data.pipeline import IndexedDataset
 from ..device import resolve_device
 from ..train.optimizer import AdamWConfig
-from ..train.trainer import Trainer, TrainerConfig
+from ..train.trainer import Trainer, TrainerConfig, require_token_model
 
 __all__ = ["build_parser", "main", "run"]
 
@@ -75,6 +76,7 @@ def run(args: argparse.Namespace, on_step=None) -> Dict[str, object]:
         cfg = cfg.smoke()
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    require_token_model(cfg)  # before the corpus is built
 
     root = Path(args.workdir) / "corpus"
     spec = CorpusSpec(n_files=4, records_per_file=args.corpus_records // 4)

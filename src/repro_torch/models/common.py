@@ -259,14 +259,16 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_ctx(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
-    """q (B, H, Dh) against a (B, Hkv, S, Dh) cache with ``valid`` (B, S)
-    → context (B, Hkv, G, Dh) float32: the grouped products."""
+                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B, H, Dh) against a (B, Hkv, S, Dh) cache with ``valid`` (B, S),
+    every row when None → context (B, Hkv, G, Dh) float32: the grouped
+    products."""
     b, h, dh = q.shape
     hkv = k_cache.shape[1]
     qg = q.reshape(b, hkv, h // hkv, dh).to(k_cache.dtype)
     s = _matmul_f32(qg, k_cache.transpose(2, 3)) / math.sqrt(dh)  # (B,Hkv,G,S)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    if valid is not None:
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return _matmul_f32(p.to(v_cache.dtype), v_cache)               # (B,Hkv,G,Dh)
 

@@ -11,16 +11,17 @@ trainer and the serving engine program against:
   cache_init(batch, max_len, device="cuda") → cache
 
 ``loss`` reads ``batch["tokens"]`` (B, S), ``batch["loss_mask"]`` (B, S)
-when present and, on the VLM family, ``batch["patch_embeds"]`` (B, I, D),
-as the reference's does; gradients flow through every kernel on its path.
-``batch["lengths"]`` (B,) makes prefill read each sequence's true last
-prompt position.  The dense, MoE, VLM, SSM (mamba2) and hybrid (Jamba)
-families are ported; encoder-decoder (ROADMAP Queue 1 item 9) raises
-``NotImplementedError``.
+when present, on the VLM family ``batch["patch_embeds"]`` (B, I, D) and
+on the encoder-decoder family ``batch["frames"]`` (B, F, D) (its loss and
+prefill), as the reference's does; gradients flow through every kernel on
+its path.  ``batch["lengths"]`` (B,) makes prefill read each sequence's
+true last prompt position.  Every family of the reference is ported:
+dense, MoE, VLM, SSM (mamba2), hybrid (Jamba) and encoder-decoder
+(Whisper).
 
 Transformer stacks without a sliding-window layer also expose the paged
-cache of continuous batching (``None`` elsewhere: gemma3, the SSM and
-hybrid families; ``supports_paged`` says which):
+cache of continuous batching (``None`` elsewhere: gemma3, the SSM,
+hybrid and encoder-decoder families; ``supports_paged`` says which):
 
   paged_cache_init(n_blocks, block_size, device="cuda") → cache
   decode_step_paged(model, token, pos, tables, cache, block_size)
@@ -37,7 +38,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from ..configs.base import ModelConfig
-from . import hybrid, ssm, transformer
+from . import encdec, hybrid, ssm, transformer
 
 __all__ = ["ModelApi", "build_model"]
 
@@ -134,9 +135,18 @@ def _recurrent_api(cfg: ModelConfig) -> ModelApi:
     )
 
 
-_LATER = {
-    "encdec": "item 9 (models/encdec.py)",
-}
+def _encdec_api(cfg: ModelConfig) -> ModelApi:
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator, device="cuda": encdec.init_encdec(cfg, generator, device),
+        loss=lambda m, batch: encdec.encdec_loss(
+            m, cfg, batch["frames"], batch["tokens"], loss_mask=batch.get("loss_mask")),
+        prefill=lambda m, batch, max_len=None: encdec.encdec_prefill(
+            m, cfg, batch["frames"], batch["tokens"], max_len=max_len,
+            lengths=batch.get("lengths")),
+        decode_step=lambda m, t, pos, c: encdec.encdec_decode_step(m, cfg, t, pos, c),
+        cache_init=lambda b, m, device="cuda": encdec.encdec_cache_init(cfg, b, m, device),
+    )
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
@@ -144,9 +154,6 @@ def build_model(cfg: ModelConfig) -> ModelApi:
         return _transformer_api(cfg)
     if cfg.family in _RECURRENT:
         return _recurrent_api(cfg)
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP Queue 1 {_LATER[cfg.family]})"
-        )
+    if cfg.family == "encdec":
+        return _encdec_api(cfg)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -17,6 +17,14 @@ router kept float32.
 :func:`params_to_reference` is the inverse, float32 numpy arrays in the
 reference's stacked layout.
 
+The encoder-decoder family (:class:`~.encdec.EncDec`) adds ``enc_pos``
+and ``enc_norm`` to ``embed/*`` and ``final_norm``, and stacks
+``enc_blocks/{ln1, ln2}``, ``enc_blocks/attn/*``, ``enc_blocks/mlp/*``
+``(n_enc_layers, ...)`` and ``dec_blocks/{ln1, ln2, ln3}``,
+``dec_blocks/self/*``, ``dec_blocks/cross/*``, ``dec_blocks/mlp/*``
+``(n_layers, ...)``; ``enc_pos`` is cast to the compute dtype with the
+matrices.
+
 The SSM family (:class:`~.ssm.SSM`) is named ``embed/*``, ``final_norm``,
 ``blocks/ln`` and ``blocks/mamba/{in_proj, conv_w, conv_b, a_log, d_skip,
 dt_bias, norm_w, out_proj}``, stacked ``(n_layers, ...)``.  The hybrid
@@ -52,6 +60,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from .common import Attention, Embed, RMSNorm, SwiGLU, compute_dtype
+from .encdec import DecoderLayer as EncDecLayer, EncDec, EncoderLayer
 from .hybrid import Hybrid, HybridLayer, _layout
 from .mamba2 import _NAMES as _MAMBA, Mamba2
 from .moe import MoE
@@ -89,8 +98,8 @@ def _tensor(a: Array) -> torch.Tensor:
 
 def params_from_reference(cfg: ModelConfig, named: Mapping[str, Array],
                           device: DeviceLike = "cuda"):
-    """The port's model (LM, SSM or Hybrid, by ``cfg.family``) holding the
-    reference's parameters ``named``."""
+    """The port's model (LM, SSM, Hybrid or EncDec, by ``cfg.family``)
+    holding the reference's parameters ``named``."""
     dev = resolve_device(device)
     missing = [n for n in _names(cfg) if n not in named]
     if missing:
@@ -99,7 +108,58 @@ def params_from_reference(cfg: ModelConfig, named: Mapping[str, Array],
         return _ssm_from_reference(cfg, named, dev)
     if cfg.family == "hybrid":
         return _hybrid_from_reference(cfg, named, dev)
+    if cfg.family == "encdec":
+        return _encdec_from_reference(cfg, named, dev)
     return _lm_from_reference(cfg, named, dev)
+
+
+def _encdec_layout(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], List[str]]]:
+    """:func:`reference_layout` of the encoder-decoder family beyond
+    ``embed/*`` and ``final_norm``."""
+    attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
+    out = {"enc_pos": ((), ["enc_pos"]), "enc_norm": ((), ["enc_norm.weight"])}
+    for stack, n, norms, subs in (
+            ("enc_blocks", cfg.n_enc_layers, ("ln1", "ln2"),
+             (("attn", attn), ("mlp", _MLP))),
+            ("dec_blocks", cfg.n_layers, ("ln1", "ln2", "ln3"),
+             (("self", attn), ("cross", attn), ("mlp", _MLP)))):
+        for ln in norms:
+            out[f"{stack}/{ln}"] = ((n,), [f"{stack}.{i}.{ln}.weight" for i in range(n)])
+        for sub, names in subs:
+            for p in names:
+                out[f"{stack}/{sub}/{p}"] = ((n,), [f"{stack}.{i}.{sub}.{p}"
+                                                    for i in range(n)])
+    return out
+
+
+def _encdec_from_reference(cfg: ModelConfig, named, dev) -> EncDec:
+    cdt = compute_dtype(cfg)
+    flat = {}  # the module's parameter name -> its (unstacked) tensor
+    for ref, (lead, names) in _encdec_layout(cfg).items():
+        t = _stacked(named, ref, lead)
+        flat.update(zip(names, t.reshape(-1, *t.shape[len(lead):]) if lead else [t]))
+
+    def mat(name):
+        return flat[name].to(dev, cdt)
+
+    def norm(name):
+        return RMSNorm(flat[f"{name}.weight"].to(dev), cfg.norm_eps)
+
+    def attn(prefix):
+        bias = [mat(f"{prefix}.{p}") if cfg.qkv_bias else None for p in _BIAS]
+        return Attention(*(mat(f"{prefix}.{p}") for p in _ATTN), *bias)
+
+    def mlp(prefix):
+        return SwiGLU(*(mat(f"{prefix}.{p}") for p in _MLP))
+
+    enc = [EncoderLayer(norm(f"{x}.ln1"), attn(f"{x}.attn"), norm(f"{x}.ln2"),
+                        mlp(f"{x}.mlp"))
+           for x in (f"enc_blocks.{i}" for i in range(cfg.n_enc_layers))]
+    dec = [EncDecLayer(norm(f"{x}.ln1"), attn(f"{x}.self"), norm(f"{x}.ln2"),
+                       attn(f"{x}.cross"), norm(f"{x}.ln3"), mlp(f"{x}.mlp"))
+           for x in (f"dec_blocks.{i}" for i in range(cfg.n_layers))]
+    embed, final = _embed(cfg, named, dev)
+    return EncDec(cfg, embed, mat("enc_pos"), enc, norm("enc_norm"), dec, final)
 
 
 def _embed(cfg: ModelConfig, named, dev) -> Tuple[Embed, RMSNorm]:
@@ -217,6 +277,8 @@ def _names(cfg: ModelConfig):
         names.append("embed/unembed")
     if cfg.family == "ssm":
         return names + ["blocks/ln"] + [f"blocks/mamba/{n}" for n in _MAMBA]
+    if cfg.family == "encdec":
+        return names + list(_encdec_layout(cfg))
     attn = [f"blocks/attn/{n}" for n in _ATTN + (_BIAS if cfg.qkv_bias else ())]
     if cfg.family == "hybrid":
         _, _, _, moe_pos, mlp_pos = _layout(cfg)
@@ -232,8 +294,9 @@ def _names(cfg: ModelConfig):
 
 def reference_layout(model) -> Dict[str, Tuple[Tuple[int, ...], List[str]]]:
     """``{reference name: (stack shape, [the module's parameter name of each
-    stacked entry, in C order])}`` of an LM, SSM or Hybrid; the stack shape
-    is ``()`` for an unstacked tensor (``embed/*``, ``final_norm``)."""
+    stacked entry, in C order])}`` of an LM, SSM, Hybrid or EncDec; the
+    stack shape is ``()`` for an unstacked tensor (``embed/*``,
+    ``final_norm``, ``enc_pos``, ``enc_norm``)."""
     cfg = model.cfg
     out: Dict[str, Tuple[Tuple[int, ...], List[str]]] = {
         "embed/table": ((), ["embed.table"]),
@@ -242,6 +305,8 @@ def reference_layout(model) -> Dict[str, Tuple[Tuple[int, ...], List[str]]]:
     if not cfg.tie_embeddings:
         out["embed/unembed"] = ((), ["embed.unembed"])
     attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
+    if isinstance(model, EncDec):
+        return {**out, **_encdec_layout(cfg)}
     if isinstance(model, SSM):
         lead = (cfg.n_layers,)
         out["blocks/ln"] = (lead, [f"layers.{i}.ln.weight" for i in range(cfg.n_layers)])

@@ -64,6 +64,14 @@ class GenerationResult:
         return self.steps / self.decode_s if self.decode_s > 0 else float("inf")
 
 
+def _nbytes(tree) -> int:
+    """Bytes of every tensor in a cache: a list of per-layer dicts, or the
+    encoder-decoder family's nested dict of stacked tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.nbytes
+    return sum(map(_nbytes, tree.values() if isinstance(tree, dict) else tree))
+
+
 class Engine:
     """Serves ``model`` (built by ``build_model(cfg).init`` or
     ``models.weights.params_from_reference``) on ``device``, where the
@@ -85,6 +93,7 @@ class Engine:
         self.tok = ByteTokenizer()
         self._gen = torch.Generator(device=self.device)
         # bytes of the KV cache that the last ``generate``'s prefill allocated
+        # (the encoder-decoder family's cross cache included)
         self.kv_cache_bytes = 0
 
     def _sync(self) -> None:
@@ -125,6 +134,10 @@ class Engine:
             "tokens": torch.from_numpy(toks).to(dev),
             "lengths": torch.from_numpy(lens).to(dev),
         }
+        if self.cfg.family == "encdec":  # the audio frontend is a stub
+            batch["frames"] = torch.zeros(
+                (b, self.cfg.enc_frames, self.cfg.d_model), dtype=torch.float32,
+                device=dev)
         if self.cfg.family == "vlm":  # the vision frontend is a stub
             batch["patch_embeds"] = torch.zeros(
                 (b, self.cfg.n_img_tokens, self.cfg.d_model), dtype=torch.float32,
@@ -138,7 +151,7 @@ class Engine:
                                              max_len=self.scfg.max_len)
             self._sync()
         prefill_s = time.perf_counter() - t0
-        self.kv_cache_bytes = sum(t.nbytes for layer in cache for t in layer.values())
+        self.kv_cache_bytes = _nbytes(cache)
 
         pos = batch["lengths"] + (self.cfg.n_img_tokens or 0)
         cur = torch.argmax(logits, dim=-1)[:, None]

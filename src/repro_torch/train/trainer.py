@@ -9,7 +9,10 @@ the train state under the reference's names
 (:func:`~repro_torch.models.weights.state_to_reference`): a run of either
 package resumes from the other's.  The device is explicit (``"cuda"`` by
 default); a mesh (the distribution layer, ROADMAP Queue 1 item 10) is
-not ported and raises.
+not ported and raises.  The batches hold tokens only, as the reference's
+do, so the encoder-decoder family, whose loss also reads audio frames,
+cannot be trained here (:func:`require_token_model` raises); its loss and
+gradients run through ``build_model(cfg).loss`` and autograd.
 """
 
 from __future__ import annotations
@@ -37,7 +40,18 @@ from ..runtime.fault import Heartbeat
 from .loop import make_train_state, make_train_step
 from .optimizer import AdamWConfig
 
-__all__ = ["Trainer", "TrainerConfig"]
+__all__ = ["Trainer", "TrainerConfig", "require_token_model"]
+
+
+def require_token_model(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg``'s loss reads nothing but the tokens (and mask)
+    that the trainer's batches hold."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family's loss reads audio frames "
+            "(batch['frames']) and the trainer's batches hold tokens only (no "
+            "frame source, as in the reference); train it through "
+            "build_model(cfg).loss and autograd")
 
 
 @dataclasses.dataclass
@@ -80,6 +94,7 @@ class Trainer:
                 "Trainer over a mesh is not ported yet (ROADMAP Queue 1 item 10, "
                 "the distribution layer); pass mesh=None"
             )
+        require_token_model(model_cfg)
         self.model_cfg = model_cfg
         self.tcfg = tcfg
         self.dataset = dataset

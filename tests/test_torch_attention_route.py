@@ -29,14 +29,17 @@ SERVING = ["yi-6b", "qwen2-72b", "internvl2-76b", "gemma3-12b", "whisper-small"]
 B, S = 2, 48
 
 
-def _views(arch, dtype=torch.bfloat16, b=B, s=S):
+def _views(arch, dtype=torch.bfloat16, b=B, s=S, skv=None):
     """The serving path's q, k, v: ``(B, S, H, D)`` projections viewed as
-    ``(B, H, S, D)`` (``models/transformer.py`` ``lm_prefill``)."""
+    ``(B, H, S, D)`` (``models/transformer.py`` ``lm_prefill``); with
+    ``skv``, k and v are ``(B, skv, Hkv, D)`` projections of an encoder's
+    output (the cross attention of ``models/encdec.py``)."""
     cfg = get_config(arch)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    skv = s if skv is None else skv
     q = torch.zeros((b, s, h, d), dtype=dtype).transpose(1, 2)
-    k = torch.zeros((b, s, hkv, d), dtype=dtype).transpose(1, 2)
-    v = torch.zeros((b, s, hkv, d), dtype=dtype).transpose(1, 2)
+    k = torch.zeros((b, skv, hkv, d), dtype=dtype).transpose(1, 2)
+    v = torch.zeros((b, skv, hkv, d), dtype=dtype).transpose(1, 2)
     return q, k, v
 
 
@@ -45,6 +48,25 @@ def test_serving_views_take_the_tensor_core_route(arch):
     q, k, v = _views(arch)
     assert not q.is_contiguous()
     assert route(q, k, v) == "tensor_core"
+
+
+@pytest.mark.parametrize("sq", [1, 37, 416])
+def test_whisper_cross_views_take_the_tensor_core_route(sq):
+    """whisper-small's cross attention: the decoder's ``Sq`` rows against
+    the encoder's 1,500 frames, k and v ``(B, F, Hkv, D)`` projections of
+    its output viewed as ``(B, Hkv, F, D)``; D = 64 (one 128-byte swizzle
+    atom) and 1,500 = 11 key tiles of 128 plus 92 keys."""
+    cfg = get_config("whisper-small")
+    f, h, d = cfg.enc_frames, cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = _views("whisper-small", s=sq, skv=f)
+    assert not k.is_contiguous() and k.shape == (B, cfg.n_kv_heads, f, d)
+    assert route(q, k, v) == "tensor_core"
+    assert tc_tiles(d) == (64, 128) and f % 128 == 92
+    maps = tensor_maps(q, k, v)
+    assert maps["q"]["dims"] == (d, sq, h, B)
+    assert maps["k"]["dims"] == maps["v"]["dims"] == (d, f, h, B)
+    assert maps["k"]["strides"] == (h * d * 2, d * 2, f * h * d * 2)
+    assert maps["k"]["box"] == (64, 128, 1, 1)
 
 
 @pytest.mark.parametrize("case", ["float32", "d20", "seq_stride_136_bytes",

@@ -247,6 +247,8 @@ FA_CARD_CASES = [
     (1, 4, 2, 300, 300, 256, True, 100),
     (1, 2, 1, 256, 128, 32, True, None),
     (2, 8, 2, 1000, 1000, 128, True, None),
+    (1, 2, 2, 1500, 1500, 64, False, None),   # whisper's encoder: 11 tiles + 92 keys
+    (1, 2, 2, 37, 1500, 64, False, None),     # whisper's cross attention
 ]
 
 
@@ -717,10 +719,15 @@ def test_ssd_scan_backward_on_the_card(cuda, bh, c, p, n):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hq,hkv,sq,skv,window", [(8, 2, 300, 300, None),
-                                                  (4, 4, 100, 260, None),
-                                                  (4, 1, 257, 257, 64)])
-def test_flash_attention_backward_on_the_card(cuda, dtype, hq, hkv, sq, skv, window):
+@pytest.mark.parametrize("hq,hkv,sq,skv,window,causal", [
+    (8, 2, 300, 300, None, True),
+    (4, 4, 100, 260, None, True),
+    (4, 1, 257, 257, 64, True),
+    (2, 2, 1500, 1500, None, False),   # whisper's encoder
+    (2, 2, 37, 1500, None, False),     # whisper's cross attention
+])
+def test_flash_attention_backward_on_the_card(cuda, dtype, hq, hkv, sq, skv, window,
+                                              causal):
     """The kernel's output carries a grad_fn; dq, dk, dv against autograd
     through the plain version in float32 on the same values, within the
     bound ``grad_bound_excess`` derives (float32: 1e-4)."""
@@ -733,11 +740,59 @@ def test_flash_attention_backward_on_the_card(cuda, dtype, hq, hkv, sq, skv, win
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     go = torch.randn(q.shape, device=cuda).to(dt)
     before = flash_attention_cuda.launches
-    out = flash_attention(q, k, v, causal=True, window=window)
+    out = flash_attention(q, k, v, causal=causal, window=window)
     assert out.grad_fn is not None and flash_attention_cuda.launches == before + 1
     got = torch.autograd.grad(out, (q, k, v), go)
-    ratios = grad_bound_excess(q, k, v, go, got, True, window)
+    ratios = grad_bound_excess(q, k, v, go, got, causal, window)
     assert max(ratios) <= 1.0, ratios
+
+
+def test_encdec_smoke_on_the_card_matches_the_cpu(cuda):
+    """whisper-small's smoke config in float32 on the same weights: prefill
+    logits and both caches, a decode step, and the loss and its gradients,
+    on the card (three kernel launches a layer pair in prefill) against
+    the CPU."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("whisper-small").smoke(), dtype="float32")
+    api = build_model(cfg)
+    model = api.init(torch.Generator(device="cpu").manual_seed(0), "cpu")
+    card = copy.deepcopy(model).to(cuda)
+    rng = np.random.default_rng(0)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.enc_frames, cfg.d_model), np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, 259, (2, 40))),
+             "lengths": torch.tensor([40, 13])}
+    before = flash_attention_cuda.launches
+    got, cache = api.prefill(card, {k: t.to(cuda) for k, t in batch.items()}, max_len=64)
+    want, cpu_cache = api.prefill(model, batch, max_len=64)
+    assert flash_attention_cuda.launches == before + cfg.n_enc_layers + 2 * cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+    for part in ("self", "cross"):
+        np.testing.assert_allclose(cache[part]["v"].cpu().numpy(),
+                                   cpu_cache[part]["v"].numpy(), atol=1e-4, rtol=1e-4)
+    tok = torch.argmax(want, -1)[:, None]
+    got, _ = api.decode_step(card, tok.to(cuda), batch["lengths"].to(cuda), cache)
+    want, _ = api.decode_step(model, tok, batch["lengths"], cpu_cache)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-4)
+    for m in (model, card):
+        for p in m.parameters():
+            p.requires_grad_(True)
+    grads = []
+    for m, dev in ((model, "cpu"), (card, cuda)):
+        loss, _ = api.loss(m, {k: t.to(dev) for k, t in batch.items()})
+        grads.append((loss, torch.autograd.grad(loss, list(m.parameters()))))
+    (lc, gc), (lg, gg) = grads
+    np.testing.assert_allclose(float(lg.detach()), float(lc.detach()), rtol=1e-4)
+    for a, b in zip(gc, gg):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4, rtol=1e-3)
+        assert bool((b != 0).any()) == bool((a != 0).any())
 
 
 def test_train_smoke_on_the_card_matches_the_cpu(cuda):

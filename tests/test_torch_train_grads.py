@@ -47,8 +47,11 @@ FA_CASES = [
     (1, 4, 2, 9, 30, 16, True, None),      # Sq < Skv (suffix queries)
     (1, 2, 1, 12, 5, 8, True, None),       # Sq > Skv: rows 0..6 see no key
     (1, 2, 2, 10, 14, 8, False, 4),        # window without the causal mask
+    (1, 4, 2, 9, 30, 16, False, None),     # cross attention: Sq < Skv, no mask
+    (1, 2, 2, 12, 5, 8, False, None),      # cross attention: Sq > Skv, no mask
 ]
-FA_IDS = ["causal-gqa", "mqa", "window", "sq<skv", "no-key-rows", "window-noncausal"]
+FA_IDS = ["causal-gqa", "mqa", "window", "sq<skv", "no-key-rows", "window-noncausal",
+          "cross-sq<skv", "cross-sq>skv"]
 
 
 def _seeded(seed, *shapes, dtype=np.float64):
@@ -197,6 +200,8 @@ def test_flash_attention_gradcheck(causal, window):
     (0, 8, 32, 0, True, 4, (0, 11)),         # window: rows up to 7 + 4 - 1
     (0, 8, 10, -4, True, None, (4, 10)),     # Sq > Skv: rows 0..3 see no key
     (0, 8, 10, 0, False, None, (0, 10)),
+    (0, 8, 12, -4, False, None, (0, 12)),    # no mask, Sq > Skv: every row
+    (0, 4, 12, -4, False, 2, (0, 9)),        # window only, Sq > Skv
 ])
 def test_row_span(lo, hi, sq, off, causal, window, want):
     """The rows that see some key of a chunk, against a brute-force mask."""
