@@ -170,11 +170,36 @@
    tensor-core ``flash_attention``), one more step under the profiler
    (the attention backward's share) and the final checkpoint's seconds
    and bytes (then deleted).
-12. A ``{"kernels": [...]}`` line (``launches`` summed over the paths:
+12. Execution over a mesh, one process over a 1x1 ``DeviceMesh`` on a
+   one-rank NCCL group.  (a) Right after step 6's continuous serving,
+   yi-6b at full size through ``Engine(mesh=1x1, param_specs=...)`` on the
+   weights step 6 served, wrapped as DTensors without a copy, the same 8
+   prompts, twice: the tokens must equal step 6's, and ``flash_attention``
+   must launch 32 times a prefill, all on the tensor-core route (counts
+   set to 0 just before); prefill ms and decode tokens/s are printed
+   beside step 6's, and the phase's own peak; the group is then
+   destroyed, so none runs beside the unsharded phases.  After training,
+   on a new one-rank group: (b) moonshot-v1-16b-a3b at full width cut to 2 layers, f32: the
+   expert-parallel path at model = 1 against ``mesh=None`` on the same
+   weights (router top-6 equal, logits within ``MODEL_ATOL``/``MODEL_RTOL``,
+   dropped assignments equal); (c) ``Trainer.run`` with ``mesh=1x1``
+   against ``mesh=None`` on mamba2-1.3b at full width cut to 2 layers,
+   f32, 2 steps from one state, each run ending in its checkpoint (loss
+   and grad norm within ``MODEL_ATOL``/``MODEL_RTOL``, the mesh run's
+   checkpoint restores into an unsharded trainer equal to its state, 3
+   ``ssd_scan`` launches a layer a step);
+   (d) the dry-run (``launch/dryrun.py``, a fake process group, ``meta``
+   tensors) on a 1-rank mesh for yi-6b's served prefill (B = 8 x S =
+   2,048) and mamba2-1.3b's training step (B = 4 x 2,048): each
+   ``step_time_lb`` is printed beside step 6's warm prefill and step 11's
+   median step and may not exceed 1.05 x it; then yi-6b x ``train_4k`` on
+   the 32 x 8 fake mesh, and its seconds.
+13. A ``{"kernels": [...]}`` line (``launches`` summed over the paths:
    ``hash_mix`` in the service, ``digest_ids`` and training's batch
    verify, ``flash_attention`` in yi-6b's static and continuous serving,
-   whisper-small's, moonshot's and training, ``ssd_scan`` in serving and
-   training), the
+   whisper-small's, moonshot's, training and the mesh phase, ``ssd_scan``
+   in serving, training and the mesh trainer; kernel bounds from
+   ``repro_torch.kernels.work``, the dry-run's own formulas), the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
    Any failure exits non-zero before it.
 
@@ -199,6 +224,11 @@ import torch
 
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
+
+try:  # the kernels' work, as the dry-run counts it
+    from repro_torch.kernels.work import attention_bwd_work, attention_work, scan_work
+except ImportError:  # run without the package: main() fails with the reason
+    attention_bwd_work = attention_work = scan_work = None
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): the HBM3
 # rate, and the 32-bit integer rate: half the 67e12 FP32 CUDA-core rate,
@@ -677,18 +707,6 @@ def kernel_phase(seed: int):
     return main, hm
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
-    """(query, key) pairs a mask leaves visible: row p sits at position
-    p + Skv - Sq and sees keys j < Skv with j <= it (causal) and j > it -
-    window."""
-    off, pairs = skv - sq, 0
-    for p in range(sq):
-        hi = min(p + off + 1, skv) if causal else skv
-        lo = max(0, p + off - window + 1) if window is not None else 0
-        pairs += max(0, hi - lo)
-    return pairs
-
-
 def sdpa_mask(case: FaCase, dev):
     """SDPA's boolean mask of ``case``, or None where ``is_causal`` (a
     causal case with Sq == Skv and no window) or no mask says it."""
@@ -777,8 +795,7 @@ def attention_case(case: FaCase, seed: int):
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **mode), 2, warmup=1)
     library = cuda_ms(sdpa, 20, warmup=2)
     # the visible (query, key) pairs of this mask, two products of D each
-    flops = 4 * b * hq * d * visible_pairs(s, sk, causal, window)
-    nbytes = 2 * b * d * (2 * hq * s + 2 * hkv * sk)
+    flops, nbytes = attention_work(b, hq, hkv, s, sk, d, causal, window, 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -846,8 +863,7 @@ def ssd_scan_case(case, seed: int):
     del got, want
     ms = cuda_ms(lambda: ssd_scan_cuda(states, decay), 20)
     plain = cuda_ms(lambda: ssd_scan_ref(states, decay), 3, warmup=1)
-    nbytes = 2 * states.numel() * 4 + decay.numel() * 4
-    flops = 2 * states.numel()
+    flops, nbytes = scan_work(bh, c, p, n)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -986,8 +1002,8 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
     launch.serve.run with the corpus prompts of ``lengths`` bytes;
     ``wrapper``'s kernel must launch exactly ``prefill_launches`` times per
     prefill and never in decode.  Returns its launches over the phase, the
-    served engine (for callers that go on serving its model) and the
-    tokens of the first run."""
+    served engine (for callers that go on serving its model) and the runs
+    (tokens, prefill and decode timings)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.moe import MoE, monitor
@@ -1059,7 +1075,7 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
     profile_generate(engine, prompts, card, arch)
     del out
     torch.cuda.empty_cache()
-    return launches, engine, runs[0]["token_ids"]
+    return launches, engine, runs
 
 
 def encdec_cache_check(engine, prompts, wrapper, max_len: int, per_prefill: int) -> str:
@@ -1934,9 +1950,8 @@ def attention_backward_case(case: FaCase, seed: int):
                                              enable_gqa=True)
     library = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), d_out,
                                                   retain_graph=True), 5, warmup=1)
-    pairs = visible_pairs(s, s, causal, window)
-    flops = 2 * b * hq * d * pairs * 6   # S twice (lse, then P), dP, dV, dQ, dK
-    nbytes = 2 * b * d * (3 * hq * s + 4 * hkv * s)  # q, out, dO, k, v in; dq, dk, dv out
+    # S twice (lse, then P), dP, dV, dQ, dK; q, out, dO, k, v in; dk, dv out
+    flops, nbytes = attention_bwd_work(b, hq, hkv, s, s, d, causal, window, 2)
     bnd, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                   (flops / F32_FLOPS_PER_S * 1e3, "operations"))
     tc_bnd = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
@@ -2227,6 +2242,260 @@ def full_training_phase(work: Path, arch: str, layers, steps: int, card: str,
     return dict(launches=per_step, steps=steps, step_ms=step_ms, prof=prof)
 
 
+# ---------------------------------------------------------------------------
+# execution over a mesh (one card: a 1x1 DeviceMesh over a one-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_SEQ = 256       # the mesh trainer's batches: 4 x 256 corpus tokens
+MESH_TRAIN_STEPS = 2
+# a dry-run bound above this many times the measured time is a wrong count
+DRYRUN_SLACK = 1.05
+DRYRUN_FAKE_CELL = ("yi-6b", "train_4k")   # on the 32 x 8 production mesh
+
+
+def one_card_mesh():
+    """The ("data", "model") = (1, 1) DeviceMesh of this process's card."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    print(f"mesh: {mesh} over a {torch.distributed.get_backend()} group of "
+          f"{torch.distributed.get_world_size()}", flush=True)
+    return mesh
+
+
+def mesh_serving_phase(work: Path, engine, static_runs, mesh, card: str) -> int:
+    """yi-6b at full size through ``Engine(mesh=1x1, param_specs=...)`` on
+    the weights step 6 served (wrapped as DTensors, no copy), the same 8
+    prompts, twice: the tokens must equal step 6's unsharded tokens, and
+    ``flash_attention`` must launch once a layer a prefill, all on the
+    tensor-core route (counts set to 0 just before).  Prints the prefill
+    ms and decode tokens/s beside step 6's, and the phase's own peak.
+    Returns the launches."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.models.specs import param_specs
+    from repro_torch.serve.engine import Engine
+
+    prompts = corpus_prompts(work, SERVE_LENGTHS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(engine.cfg, engine.model, engine.scfg, device="cuda", mesh=mesh,
+                 param_specs=param_specs(engine.model))
+    plain = dict(engine.model.named_parameters())
+    for name, p in eng.model.named_parameters():
+        if p.to_local().data_ptr() != plain[name].data_ptr():
+            fail(f"mesh serving: {name} was copied")
+    flash_attention_cuda.launches = flash_attention_cuda.tc_launches = 0
+    runs = [eng.generate(prompts) for _ in range(2)]
+    launches, tc = flash_attention_cuda.launches, flash_attention_cuda.tc_launches
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = 2 * engine.cfg.n_layers
+    if launches != want or tc != want:
+        fail(f"mesh serving: {launches} flash_attention launches ({tc} on the "
+             f"tensor-core route), want {want}, all tensor-core")
+    for i, res in enumerate(runs):
+        if [r.token_ids for r in res] != static_runs[0]["token_ids"]:
+            fail(f"mesh serving: run {i}'s tokens differ from the unsharded engine's")
+    for i, (res, ref) in enumerate(zip(runs, static_runs)):
+        r = res[0]
+        tps = len(res) * r.steps / r.decode_s
+        print(f"mesh_serving[yi-6b, 1x1 mesh] run {i}: prefill_ms={r.prefill_s * 1e3:.3f} "
+              f"(unsharded, step 6: {ref['prefill_ms']:.3f}); decode {r.steps} steps "
+              f"{tps:.1f} tokens/s (unsharded: {ref['decode_tokens_per_s']:.1f}); "
+              f"card: {card}", flush=True)
+    print(f"mesh_serving[yi-6b]: {engine.cfg.n_layers} layers bf16, every parameter a "
+          f"DTensor on the 1x1 mesh sharing the unsharded weights' storage; tokens "
+          f"identical to step 6's over 2 runs; flash_attention launches {launches} "
+          f"({engine.cfg.n_layers} a prefill, all on the tensor-core route); own peak "
+          f"{peak - base} bytes (allocated at the start {base}); {secs:.1f} s", flush=True)
+    del eng, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_mesh_check(work: Path, seed: int, mesh, card: str) -> int:
+    """moonshot-v1-16b-a3b at full width cut to ``MODEL_LAYERS`` layers,
+    float32 with TF32 off: the expert-parallel path at model = 1 on the
+    1x1 mesh against ``mesh=None`` on the same weights: the router's top-6
+    equal, the prefill logits within ``MODEL_ATOL``/``MODEL_RTOL``, the
+    dropped assignments equal.  Returns the mesh run's ``flash_attention``
+    launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.logical import use_mesh
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.sharding import (batch_shardings, distribute,
+                                             distribute_params, module_copy)
+    from repro_torch.models.moe import monitor
+    from repro_torch.models.specs import param_specs
+    from repro_torch.models.transformer import init_lm, lm_prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              n_layers=MODEL_LAYERS, dtype="float32")
+    model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    toks, lens = prompt_batch(corpus_prompts(work, (255, 97)))
+    batch = {"tokens": toks.cuda(), "lengths": lens.cuda()}
+    with monitor(model) as r_plain:
+        want, _ = lm_prefill(model, cfg, batch["tokens"], lengths=batch["lengths"])
+    sharded = distribute_params(module_copy(model), mesh, param_specs(model))
+    pls = batch_shardings(mesh, batch)
+    dbatch = {k: distribute(v, mesh, pls[k]) for k, v in batch.items()}
+    flash_attention_cuda.launches = 0
+    with use_mesh(mesh), monitor(sharded) as r_mesh:
+        got, _ = lm_prefill(sharded, cfg, dbatch["tokens"], lengths=dbatch["lengths"])
+        got = got.full_tensor()
+        routed = [(c.top_i.full_tensor(), int(c.dropped.full_tensor())) for c in r_mesh]
+    torch.cuda.synchronize()
+    launches = flash_attention_cuda.launches
+    same_top = all(torch.equal(a.top_i, b) for a, (b, _) in zip(r_plain, routed))
+    drop_plain = int(sum(c.dropped for c in r_plain))
+    drop_mesh = sum(d for _, d in routed)
+    err = float((got - want).abs().max())
+    print(f"mesh moe: moonshot-v1-16b-a3b full width, {MODEL_LAYERS} layers, float32, "
+          f"allow_tf32=False, expert-parallel path on the 1x1 mesh ({cfg.n_experts} "
+          f"experts on the one model rank) against mesh=None: router top-"
+          f"{cfg.experts_per_token} {'identical' if same_top else 'DIFFERENT'} on "
+          f"{toks.numel()} tokens x {len(routed)} layers; dropped {drop_mesh} (mesh) "
+          f"{drop_plain} (none); logits max_abs_err={err:.6g} (atol {MODEL_ATOL}, rtol "
+          f"{MODEL_RTOL}); flash_attention launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s; card: {card}", flush=True)
+    if len(routed) != MODEL_LAYERS or not same_top:
+        fail("mesh moe: the expert-parallel path routed otherwise")
+    if drop_mesh != drop_plain:
+        fail(f"mesh moe: {drop_mesh} dropped on the mesh, {drop_plain} without")
+    if not torch.allclose(got, want, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+        fail(f"mesh moe: logits differ (max {err})")
+    if launches != MODEL_LAYERS:
+        fail(f"mesh moe: {launches} flash_attention launches, want {MODEL_LAYERS}")
+    del model, sharded, want, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def trainer_mesh_check(work: Path, seed: int, mesh, card: str) -> int:
+    """``Trainer.run`` with ``mesh=1x1`` against ``mesh=None`` on mamba2-1.3b
+    at full width cut to ``MODEL_LAYERS`` layers, float32 with TF32 off,
+    both from the state ``seed`` draws, ``MESH_TRAIN_STEPS`` steps on the
+    same batches, each ending in the trainer's checkpoint (on the mesh:
+    every parameter gathered whole, written by rank 0, then a barrier over
+    NCCL): loss and grad norm within ``MODEL_ATOL``/``MODEL_RTOL``; the
+    mesh run's checkpoint restores into an unsharded trainer equal to the
+    state it held; ``ssd_scan`` must launch 3 times a layer a step on the
+    mesh (counts set to 0 just before).  Returns those launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import RecordStore, build_index
+    from repro_torch.data.pipeline import IndexedDataset
+    from repro_torch.dist.logical import whole
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    store = RecordStore(work / "corpus")
+    ds = IndexedDataset(store, build_index(store), MESH_TRAIN_SEQ, device="cuda")
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=MODEL_LAYERS,
+                              dtype="float32")
+    tcfg = TrainerConfig(seq_len=MESH_TRAIN_SEQ, global_batch=4,
+                         steps=MESH_TRAIN_STEPS, seed=seed,
+                         opt=AdamWConfig(warmup_steps=1, total_steps=MESH_TRAIN_STEPS))
+    hist = {}
+    for name, m in (("none", None), ("1x1", mesh)):
+        tr = Trainer(cfg, tcfg, ds, work / f"mesh_trainer_{name}", mesh=m, device="cuda")
+        state = tr.init_state()
+        ssd_scan_cuda.launches = 0
+        done, state, history = tr.run(until_step=MESH_TRAIN_STEPS, state=state)
+        torch.cuda.synchronize()
+        launches = ssd_scan_cuda.launches
+        hist[name] = [{k: r[k] for k in ("loss", "grad_norm", "lr", "ckpt_s") if k in r}
+                      for r in history]
+        if done != MESH_TRAIN_STEPS or "ckpt_s" not in history[-1]:
+            fail(f"mesh trainer ({name}): ran to step {done} without its checkpoint")
+        if m is not None:
+            kinds = {type(p).__name__ for p in state["model"].parameters()}
+            held = {n: whole(p.detach()) for n, p in state["model"].named_parameters()}
+        del tr, state
+        torch.cuda.empty_cache()
+    back = Trainer(cfg, tcfg, ds, work / "mesh_trainer_1x1", device="cuda")
+    step, restored = back.maybe_restore(back.init_state())
+    same = step == MESH_TRAIN_STEPS and all(
+        torch.equal(p, held[n]) for n, p in restored["model"].named_parameters())
+    del back, restored, held
+    torch.cuda.empty_cache()
+    ds.close()
+    print(f"mesh trainer: mamba2-1.3b full width, {MODEL_LAYERS} layers, float32, "
+          f"allow_tf32=False, B=4 x {MESH_TRAIN_SEQ}, Trainer.run to step "
+          f"{MESH_TRAIN_STEPS}, parameters {sorted(kinds)}: mesh=1x1 {hist['1x1']} vs "
+          f"mesh=None {hist['none']}; the mesh checkpoint restores unsharded at step "
+          f"{step}, parameters {'equal' if same else 'DIFFERENT'}; ssd_scan launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s; card: {card}", flush=True)
+    for a, b in zip(hist["1x1"], hist["none"]):
+        for k in ("loss", "grad_norm"):
+            if not abs(a[k] - b[k]) <= MODEL_ATOL + MODEL_RTOL * abs(b[k]):
+                fail(f"mesh trainer: {k} {a[k]} on the mesh, {b[k]} without")
+    if not same:
+        fail("mesh trainer: the mesh run's checkpoint does not restore its state")
+    want = 3 * MODEL_LAYERS * MESH_TRAIN_STEPS
+    if launches != want:
+        fail(f"mesh trainer: {launches} ssd_scan launches, want {want}")
+    return launches
+
+
+def dryrun_check(static_runs, train_step_ms: float, card: str) -> None:
+    """The dry-run's roofline bound against this run's times on the card: on
+    a 1-rank mesh, yi-6b's served prefill (B = 8 x S = 2,048, 32 layers,
+    bf16) against step 6's warm prefill, and mamba2-1.3b's training step
+    (B = 4 x 2,048, 48 layers) against step 11's median step.  A bound
+    above ``DRYRUN_SLACK`` x the measured time fails: a count that says the
+    card beat its roofline is a wrong count.  Then one production cell on
+    the 32 x 8 fake mesh, and its seconds.  The NCCL group of the mesh
+    phases is destroyed first (the dry-run's group is a fake one)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    torch.distributed.destroy_process_group()
+    cells = [
+        ("yi-6b", ShapeConfig("served_prefill", 2048, len(SERVE_LENGTHS), "prefill"),
+         static_runs[1]["prefill_ms"], "step 6's warm prefill"),
+        ("mamba2-1.3b", ShapeConfig("train_step", TRAIN_SEQ, TRAIN_BATCH, "train"),
+         train_step_ms, "step 11's median step"),
+    ]
+    for arch, shape, measured_ms, what in cells:
+        rec = dryrun.lower_cell(arch, shape, (1, 1), ("data", "model"), verbose=False)
+        rf = rec["roofline"]
+        lb_ms = rf["step_time_lb_s"] * 1e3
+        print(f"dryrun[{arch} x {shape.name}, 1x1]: step_time_lb_ms={lb_ms:.3f} "
+              f"({rf['bottleneck']}: compute {rf['t_compute_s'] * 1e3:.3f} ms, memory "
+              f"{rf['t_memory_s'] * 1e3:.3f} ms; flops {rf['flops_per_device']:.4g}, "
+              f"bytes {rf['bytes_per_device']:.4g}, kernels {json.dumps(rec['kernels'])}) "
+              f"against {what} {measured_ms:.3f} ms: {lb_ms / measured_ms:.3f} of it; "
+              f"dry-run {rec['total_s']} s; card: {card}", flush=True)
+        if lb_ms > DRYRUN_SLACK * measured_ms:
+            fail(f"dryrun {arch}: bound {lb_ms:.3f} ms above {DRYRUN_SLACK} x the "
+                 f"measured {measured_ms:.3f} ms")
+    arch, shape = DRYRUN_FAKE_CELL
+    shape_, axes = dryrun.production_mesh_shape(multi_pod=False)
+    rec = dryrun.lower_cell(arch, shape, shape_, axes, verbose=False)
+    rf = rec["roofline"]
+    print(f"dryrun[{arch} x {shape}, {rec['mesh']} fake mesh]: {rec['status']} in "
+          f"{rec['total_s']} s; per device flops {rf['flops_per_device']:.4g} bytes "
+          f"{rf['bytes_per_device']:.4g} collective bytes {rf['collective_bytes']:.4g} "
+          f"by axis {json.dumps(rec['collective_by_axis'])} ({rec['collective_calls']} "
+          f"collectives); terms compute {rf['t_compute_s']:.4f} s memory "
+          f"{rf['t_memory_s']:.4f} s collective {rf['t_collective_s']:.4f} s -> "
+          f"{rf['bottleneck']}; argument bytes per device {rec['arg_bytes_per_device']}",
+          flush=True)
+    torch.distributed.destroy_process_group()
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one card")
     ap.add_argument("--seed", type=int, default=0)
@@ -2300,9 +2569,16 @@ def main() -> None:
         lm_wrappers = {"flash_attention": flash_attention_cuda,
                        "ssd_scan": ssd_scan_cuda}
         model_phase(Path(work), args.seed, checks["dense"], lm_wrappers)
-        fa_static, engine, static_tokens = lm_serving_phase(
+        fa_static, engine, static_runs = lm_serving_phase(
             Path(work), args.seed, "yi-6b", flash_attention_cuda, card)
-        fa_cont = continuous_serving_phase(Path(work), engine, static_tokens, card)
+        fa_cont = continuous_serving_phase(Path(work), engine,
+                                           static_runs[0]["token_ids"], card)
+        mesh = one_card_mesh()
+        fa_mesh = mesh_serving_phase(Path(work), engine, static_runs, mesh, card)
+        # no group stays alive through the unsharded phases; (b) and (c) make
+        # their own
+        del mesh
+        torch.distributed.destroy_process_group()
         del engine
         torch.cuda.empty_cache()
         continuous_parity_phase(Path(work), args.seed, card)
@@ -2336,20 +2612,29 @@ def main() -> None:
                                              train_wrappers)
                    for arch, layers, steps in FULL_TRAIN}
         print(f"training phases: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        mesh = one_card_mesh()
+        fa_ep = moe_mesh_check(Path(work), args.seed, mesh, card)
+        ssd_mesh = trainer_mesh_check(Path(work), args.seed, mesh, card)
+        del mesh
+        dryrun_check(static_runs, trained["mamba2-1.3b"]["step_ms"], card)
+        print(f"mesh phases after training: {time.perf_counter() - t0:.1f} s", flush=True)
     hm_serving = launches["hash_mix"]
     train_total = {k: sum(step[k] for t in trained.values() for step in t["launches"])
                    for k in ("flash_attention", "ssd_scan", "hash_mix", "sorted_probe")}
     launches["hash_mix"] += digest_launches + train_total["hash_mix"]
     launches["flash_attention"] = (fa_static + fa_cont + fa_moe + fa_whisper
-                                   + train_total["flash_attention"])
-    launches["ssd_scan"] += train_total["ssd_scan"]
+                                   + train_total["flash_attention"] + fa_mesh + fa_ep)
+    launches["ssd_scan"] += train_total["ssd_scan"] + ssd_mesh
     print(f"launches by path: hash_mix serve_index {hm_serving} + digest_ids "
           f"{digest_launches} + training's batch verify {train_total['hash_mix']}; "
           f"flash_attention yi-6b static {fa_static} + yi-6b continuous {fa_cont} + "
           f"moonshot static and continuous {fa_moe} + whisper-small static "
           f"{fa_whisper} + training "
-          f"{train_total['flash_attention']}; ssd_scan mamba2 serving + training "
-          f"{train_total['ssd_scan']}; sorted_probe in training "
+          f"{train_total['flash_attention']} + the mesh phase's yi-6b serving {fa_mesh} "
+          f"and moonshot expert-parallel prefill {fa_ep}; ssd_scan mamba2 serving + "
+          f"training {train_total['ssd_scan']} + the mesh trainer {ssd_mesh}; "
+          f"sorted_probe in training "
           f"{train_total['sorted_probe']} (the launcher's index is in memory)", flush=True)
     yi = trained["yi-6b"]
     est = fa_bwd["ms"] * 4 / yi["step_ms"]

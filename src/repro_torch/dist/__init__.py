@@ -1,2 +1,3 @@
-"""Distribution helpers of the port (gradient compression; the mesh layer
-is ROADMAP Queue 1 item 10)."""
+"""Distribution layer of the port: the logical-axis rules and
+``constrain`` (``dist/logical.py``) and gradient compression
+(``dist/compress.py``)."""

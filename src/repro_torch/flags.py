@@ -1,4 +1,4 @@
-"""Run-time knobs of the read engine.
+"""Run-time knobs of the read engine, and the residual layout under a mesh.
 
 Read dynamically, not at import: tests and launchers flip them per run.
 The environment variable names are the reference package's, so one
@@ -36,3 +36,16 @@ def reader_depth() -> int:
 
 def verify_backend() -> str:
     return os.environ.get("REPRO_VERIFY_BACKEND", "auto")
+
+
+# Sequence-parallel layer outputs (Megatron SP): under a mesh the attention,
+# MLP and mixer outputs are constrained to the sequence-sharded residual
+# layout ("seq_sp" → "model"), as the reference does; REPRO_SP_OUTPUTS=0
+# keeps the residual's sequence whole.  Read once, at import, as the
+# reference reads it.
+SP_OUTPUTS = os.environ.get("REPRO_SP_OUTPUTS", "1") == "1"
+
+
+def residual_axes():
+    """Logical axes of the residual stream ``(B, S, D)`` between layers."""
+    return ("batch", "seq_sp", None) if SP_OUTPUTS else ("batch", "seq", None)

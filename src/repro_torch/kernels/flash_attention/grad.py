@@ -4,7 +4,10 @@ PyTorch ops.
 :class:`FlashAttention` is the ``torch.autograd.Function`` behind
 :func:`~.ops.flash_attention`.  Its forward is the CUDA kernel on a CUDA
 tensor (either route, as :func:`~.kernel.route` picks) and the plain
-version on the CPU; it saves ``q, k, v`` and the output.  Its backward,
+version on the CPU; on ``meta`` tensors (the dry-run) it returns an empty
+output and adds the kernel's work to ``kernels.work``'s counter (and its
+backward the backward's, ``attention_bwd_work``).  It saves ``q, k, v``
+and the output.  Its backward,
 :func:`flash_attention_bwd`, is the gradient that autodiff of the
 reference's chunked XLA path computes, written out:
 
@@ -34,6 +37,7 @@ from typing import Optional
 import torch
 import torch.profiler
 
+from .. import work
 from .kernel import flash_attention_cuda
 from .ref import check_shapes, flash_attention_ref
 
@@ -138,6 +142,13 @@ class FlashAttention(torch.autograd.Function):
             out = flash_attention_cuda(q, k, v, causal, window, scale)
         elif all(t.device.type == "cpu" for t in (q, k, v)):
             out = flash_attention_ref(q, k, v, causal, window, scale)
+        elif all(t.device.type == "meta" for t in (q, k, v)):
+            # the dry-run: shapes only, and the kernel's work on its counter
+            b, hq, sq, d = q.shape
+            work.record("flash_attention", *work.attention_work(
+                b, hq, k.shape[1], sq, k.shape[2], d, causal, window,
+                q.element_size()))
+            out = torch.empty_like(q)
         else:
             raise ValueError(
                 f"flash_attention: unsupported devices {q.device} / {k.device} / "
@@ -150,6 +161,14 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, out = ctx.saved_tensors
+        if q.device.type == "meta":   # the dry-run: the backward's work, counted
+            causal, window, _ = ctx.mask
+            b, hq, sq, d = q.shape
+            work.record("flash_attention_backward", *work.attention_bwd_work(
+                b, hq, k.shape[1], sq, k.shape[2], d, causal, window,
+                q.element_size()))
+            return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+                    None, None, None)
         # a named span, so that a profile can attribute the device time
         with torch.profiler.record_function("flash_attention.backward"):
             dq, dk, dv = flash_attention_bwd(q, k, v, out, d_out, *ctx.mask)

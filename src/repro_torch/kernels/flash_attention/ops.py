@@ -4,7 +4,9 @@
 attention of ``q (B, Hq, Sq, D)`` against ``k, v (B, Hkv, Skv, D)``, the
 queries being the last ``Sq`` positions of the key stream.  A CUDA tensor
 launches the CUDA kernel; a CPU tensor runs the plain PyTorch version.  A
-CUDA tensor never falls back to the plain version.  Gradients flow through
+CUDA tensor never falls back to the plain version; a ``meta`` tensor (the
+dry-run) gives an empty output and counts the kernel's work; a DTensor
+raises.  Gradients flow through
 :class:`~.grad.FlashAttention`: the forward is the kernel, the backward
 PyTorch ops (see grad.py).
 """
@@ -29,4 +31,17 @@ def flash_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """``(B, Hq, Sq, D)`` in q's dtype, differentiable; see kernel/ref/grad."""
+    reject_dtensors("flash_attention", q, k, v)
     return FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+def reject_dtensors(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise if a DTensor reaches a kernel: its wrapper reads ``data_ptr()``
+    and the device type, so a mesh path hands it local shards
+    (``local_map``, see ``models/common.py``)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{kernel}: a DTensor reached the kernel; under a mesh it takes "
+            "each rank's local shard (local_map)")

@@ -3,7 +3,8 @@
 ``ssd_scan(states, decay)`` — the prefix states of the Mamba2 inter-chunk
 recurrence (see ref.py).  A CUDA tensor launches the CUDA kernel; a CPU
 tensor runs the plain PyTorch version.  A CUDA tensor never falls back to
-the plain version.
+the plain version; a ``meta`` tensor (the dry-run) gives an empty output
+and counts the kernel's work; a DTensor raises.
 
 Gradients flow through :class:`SSDScan`, a ``torch.autograd.Function``.
 With ``prefix[c] = h[c]``, ``h[0] = 0`` and ``h[c+1] = decay[c] h[c] +
@@ -26,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import work
+from ..flash_attention.ops import reject_dtensors
 from .kernel import ssd_scan_cuda
 from .ref import ssd_scan_ref
 
@@ -37,6 +40,10 @@ def _scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
         return ssd_scan_cuda(states, decay)
     if states.device.type == "cpu" and decay.device.type == "cpu":
         return ssd_scan_ref(states, decay)
+    if states.device.type == "meta" and decay.device.type == "meta":
+        # the dry-run: shapes only, and the kernel's work on its counter
+        work.record("ssd_scan", *work.scan_work(*states.shape))
+        return torch.empty_like(states)
     raise ValueError(
         f"ssd_scan: unsupported devices {states.device} / {decay.device}"
     )
@@ -63,4 +70,5 @@ class SSDScan(torch.autograd.Function):
 
 def ssd_scan(states: torch.Tensor, decay: torch.Tensor) -> torch.Tensor:
     """``(BH, C, P, N)`` prefix states, differentiable; see kernel/ref."""
+    reject_dtensors("ssd_scan", states, decay)
     return SSDScan.apply(states, decay)

@@ -25,6 +25,14 @@ greedy tokens are the same either way).  Families without a paged
 decode step (sliding-window layers, SSM, hybrid, encoder-decoder) refuse
 ``--continuous``.  :func:`run` drives either mode in-process and returns a
 summary.
+
+``--mesh DATAxMODEL`` serves the static engine over a DeviceMesh: the
+weights laid out by their logical specs, the prompts over "data" (see
+``serve/engine.py``).  A mesh of more than one device runs under torchrun,
+one process per device, e.g. ``torchrun --nproc-per-node 2 -m
+repro_torch.launch.serve --mesh 2x1 --device cpu``; ``1x1`` (the default)
+serves without a mesh.  ``--continuous`` refuses a mesh other than
+``1x1``, as the reference's launcher does.
 """
 
 from __future__ import annotations
@@ -39,7 +47,9 @@ import torch
 from ..configs import ARCH_NAMES, get_config
 from ..device import resolve_device
 from ..models.registry import build_model
+from ..models.specs import param_specs
 from ..serve.engine import Engine, ServeConfig
+from .mesh import mesh_from_str
 from ..serve.kvcache import PagedCacheSpec, blocks_for
 from ..serve.scheduler import ContinuousEngine
 
@@ -71,6 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default=True,
                     help="share block-aligned prompt prefixes across requests "
                          "(continuous mode; the same greedy tokens either way)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DATAxMODEL device mesh of the static engine "
+                         "(more than one device: run under torchrun)")
     ap.add_argument("--prompts", nargs="*", default=DEFAULT_PROMPTS)
     return ap
 
@@ -80,6 +93,10 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
     with every run's tokens and timings, and the ``engine`` itself for
     callers that go on serving (or profiling) the same model."""
     dev = resolve_device(args.device)
+    if args.continuous and args.mesh != "1x1":
+        raise SystemExit("--continuous serves on one device; drop --mesh "
+                         f"{args.mesh} (the continuous engine takes no mesh)")
+    mesh = mesh_from_str(args.mesh, device=dev.type)
     cfg = get_config(args.arch)
     if not args.full_config:
         cfg = cfg.smoke()
@@ -110,10 +127,11 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
     if args.continuous:
         return {**summary, **_run_continuous(args, cfg, model, dev)}
     eng = Engine(cfg, model, ServeConfig(max_new_tokens=args.max_new_tokens,
-                                         max_len=args.max_len), device=dev)
+                                         max_len=args.max_len), device=dev,
+                 mesh=mesh, param_specs=None if mesh is None else param_specs(model))
     print(f"serving {len(args.prompts)} prompts on {args.arch} "
           f"({'full' if args.full_config else 'smoke'} config, "
-          f"{cfg.n_layers} layers, {cfg.dtype}, {dev})…")
+          f"{cfg.n_layers} layers, {cfg.dtype}, {dev}, mesh {args.mesh})…")
     runs: List[Dict[str, object]] = []
     for _ in range(args.repeats):
         res = eng.generate(args.prompts)
@@ -129,8 +147,8 @@ def run(args: argparse.Namespace) -> Dict[str, object]:
             "decode_tokens_per_s": len(res) * steps / decode_s if decode_s > 0 else 0.0,
             "token_ids": [r.token_ids for r in res],
         })
-    return {**summary, "kv_cache_bytes": eng.kv_cache_bytes, "runs": runs,
-            "engine": eng}
+    return {**summary, "mesh": args.mesh, "kv_cache_bytes": eng.kv_cache_bytes,
+            "runs": runs, "engine": eng}
 
 
 def paged_spec(max_len: int, block_size: int, max_slots: int,

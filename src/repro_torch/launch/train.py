@@ -11,8 +11,12 @@ corpus → the byte-offset index (``build_index``, an in-memory
 ``--layers`` cuts the depth) → :class:`~repro_torch.train.trainer.Trainer`
 with catalog checkpoints and heartbeats under ``--workdir``.  The flags
 are the reference's, plus ``--device`` (``cuda`` by default; the CPU only
-when asked for) and ``--layers``.  ``--mesh`` takes ``1x1`` only (the
-distribution layer is ROADMAP Queue 1 item 10).  ``--arch whisper-small``
+when asked for) and ``--layers``.  ``--mesh DATAxMODEL`` trains over a
+DeviceMesh (``1x1``, the default, trains without one); a mesh of more
+than one device runs under torchrun, one process per device, e.g.
+``torchrun --nproc-per-node 2 -m repro_torch.launch.train --mesh 1x2
+--device cpu``: rank 0 builds the corpus, every rank the index, and the
+trainer spreads each global batch over "data".  ``--arch whisper-small``
 raises: the batches carry no audio frames (``Trainer``).  :func:`run` drives it
 in-process and returns a summary with the history and the trainer.
 """
@@ -24,6 +28,8 @@ import dataclasses
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 from ..configs import ARCH_NAMES, get_config
 from ..core import RecordStore, build_index
 from ..core.sdfgen import CorpusSpec, generate_corpus
@@ -31,6 +37,7 @@ from ..data.pipeline import IndexedDataset
 from ..device import resolve_device
 from ..train.optimizer import AdamWConfig
 from ..train.trainer import Trainer, TrainerConfig, require_token_model
+from .mesh import mesh_from_str
 
 __all__ = ["build_parser", "main", "run"]
 
@@ -43,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
     ap.add_argument("--mesh", default="1x1",
-                    help="DATAxMODEL; only 1x1 (one device) is ported")
+                    help="DATAxMODEL device mesh (more than one device: run "
+                         "under torchrun)")
     ap.add_argument("--device", default="cuda",
                     help="where the model trains: cuda (default) or cpu")
     ap.add_argument("--steps", type=int, default=40)
@@ -65,12 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
 def run(args: argparse.Namespace, on_step=None) -> Dict[str, object]:
     """Train as ``args`` says → ``{"final_step", "history", "trainer",
     "state"}``; ``on_step(step, record)`` is called after every step."""
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: training over a mesh is not ported yet "
-            "(ROADMAP Queue 1 item 10, the distribution layer); use 1x1"
-        )
     dev = resolve_device(args.device)
+    mesh = mesh_from_str(args.mesh, device=dev.type)
     cfg = get_config(args.arch)
     if not args.full_config:
         cfg = cfg.smoke()
@@ -80,7 +84,10 @@ def run(args: argparse.Namespace, on_step=None) -> Dict[str, object]:
 
     root = Path(args.workdir) / "corpus"
     spec = CorpusSpec(n_files=4, records_per_file=args.corpus_records // 4)
-    generate_corpus(root, spec)
+    if mesh is None or torch.distributed.get_rank() == 0:
+        generate_corpus(root, spec)
+    if mesh is not None:
+        torch.distributed.barrier()   # the corpus is written before anyone reads
     store = RecordStore(root)
     ds = IndexedDataset(store, build_index(store, workers=2), args.seq_len,
                         device=dev)
@@ -97,7 +104,7 @@ def run(args: argparse.Namespace, on_step=None) -> Dict[str, object]:
         opt=AdamWConfig(warmup_steps=max(2, args.steps // 10),
                         total_steps=args.steps),
     )
-    tr = Trainer(cfg, tcfg, ds, Path(args.workdir), device=dev)
+    tr = Trainer(cfg, tcfg, ds, Path(args.workdir), mesh=mesh, device=dev)
     try:
         final, state, hist = tr.run(on_step=on_step)
     finally:

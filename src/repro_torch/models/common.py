@@ -22,8 +22,9 @@ Conventions
   for a CUDA tensor, the plain version on the CPU).  One-token decode is
   the reference's default unchunked path: a grouped product with float32
   accumulation and a float32 result, masked softmax, product with V.  It
-  updates the cache in place (``index_put_`` at each row's slot), where
-  the reference rebuilds it functionally and donates the old one.
+  updates the cache in place (``index_put_`` at each row's slot, on each
+  rank's local block under a mesh: :func:`write_slots`), where the
+  reference rebuilds it functionally and donates the old one.
 * The paged cache (continuous batching) is one pool ``(Hkv, n_blocks *
   block_size, Dh)`` per layer shared by every batch slot through block
   tables; ``attention_decode_paged`` writes the new token's row into the
@@ -37,6 +38,7 @@ Conventions
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -45,7 +47,16 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import flags
 from ..configs.base import ModelConfig
+from ..dist.logical import (
+    carry,
+    constrain,
+    current_mesh,
+    on_local_blocks,
+    replicate,
+    resolved_placements,
+)
 from ..kernels.flash_attention.ops import flash_attention
 
 __all__ = [
@@ -54,6 +65,7 @@ __all__ = [
     "RMSNorm",
     "SwiGLU",
     "apply_rope",
+    "attend",
     "attention_apply",
     "attention_decode",
     "attention_decode_paged",
@@ -68,14 +80,18 @@ __all__ = [
     "mlp_apply",
     "mlp_init",
     "paged_view",
+    "pad_dim",
     "paged_write_rows",
     "param_count",
     "remat",
     "rmsnorm",
     "rmsnorm_init",
     "rope_freqs",
+    "split_heads",
+    "tp_input",
     "unembed_logits",
     "unembed_weight",
+    "write_slots",
 ]
 
 NEG_INF = -1e30
@@ -105,9 +121,17 @@ def remat(fn, *args):
     non-reentrant).  The reference wraps its layer scan's body in
     ``jax.checkpoint`` with a policy that saves the attention, FFN and mixer
     outputs (``flags.remat_policy``, "names"); the port recomputes the
-    whole block, the reference's "nothing" policy."""
+    whole block, the reference's "nothing" policy.  The recomputation runs
+    under the forward's mesh and rules (``dist.logical.carry``), in
+    whichever thread autograd runs it."""
     if torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        enter = carry()
+
+        def run(*a):
+            with enter():
+                return fn(*a)
+
+        return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -162,7 +186,7 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x (..., S, H, Dh), positions broadcastable to (..., S)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (Dh/2,)
+    freqs = replicate(rope_freqs(x.shape[-1], theta, x.device))  # (Dh/2,)
     angles = positions[..., None].float() * freqs              # (..., S, Dh/2)
     cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, Dh/2)
     sin = torch.sin(angles)[..., None, :]
@@ -199,10 +223,54 @@ def attention_init(cfg: ModelConfig, generator: torch.Generator) -> Attention:
     return Attention(*ws, *biases)
 
 
+def pad_dim(t: torch.Tensor, dim: int, before: int, after: int) -> torch.Tensor:
+    """``t`` with ``before`` zero rows in front of dim ``dim`` and ``after``
+    behind it (``F.pad``).  Under a mesh on each rank's local block, the
+    padded dim made whole first: DTensor pads only a tensor replicated
+    everywhere, and some torch versions fail to plan that layout change
+    from two sharded dims."""
+    pads = [0, 0] * (t.dim() - 1 - dim) + [before, after]
+    mesh = current_mesh()
+    if mesh is None:
+        return F.pad(t, pads)
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(Replicate() if p.is_shard(dim) else p for p in t.placements)
+    return on_local_blocks(functools.partial(F.pad, pad=pads), (pl,), pl)(t)
+
+
+def tp_input(x: torch.Tensor) -> torch.Tensor:
+    """``x (B, S, D)`` laid out for a projection: under a mesh, batch over
+    the dp axes and the rest whole on every rank (Megatron's gather of the
+    sequence-parallel residual before a column-parallel matmul, which
+    GSPMD inserts by itself).  DTensor's matmul flattens ``(B, S)``, which
+    not every torch version can do across two sharded dims."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    pl = resolved_placements(("batch",), x.shape, mesh)
+    return x if tuple(x.placements) == pl else x.redistribute(x.device_mesh, pl)
+
+
+def split_heads(t: torch.Tensor, h: int, dh: int) -> torch.Tensor:
+    """``t (..., H * Dh)`` viewed as ``(..., H, Dh)``.  Under a mesh the flat
+    dim may be split over "model" only at head boundaries, so it is first
+    laid out as heads over "model" allow (whole where ``H`` does not
+    divide), batch over the dp axes."""
+    mesh = current_mesh()
+    if mesh is not None:
+        logical = ("batch",) + (None,) * (t.dim() - 2) + ("heads",)
+        pl = resolved_placements(logical, tuple(t.shape[:-1]) + (h,), mesh)
+        if tuple(t.placements) != pl:
+            t = t.redistribute(t.device_mesh, pl)
+    return t.view(*t.shape[:-1], h, dh)
+
+
 def _qkv(attn: Attention, cfg: ModelConfig, x: torch.Tensor):
     """x (B, S, D) -> q (B,S,H,Dh), k/v (B,S,Hkv,Dh) in compute dtype."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    x = tp_input(x)
     q = x @ cast(attn.wq, cfg)
     k = x @ cast(attn.wk, cfg)
     v = x @ cast(attn.wv, cfg)
@@ -210,7 +278,7 @@ def _qkv(attn: Attention, cfg: ModelConfig, x: torch.Tensor):
         q = q + cast(attn.bq, cfg)
         k = k + cast(attn.bk, cfg)
         v = v + cast(attn.bv, cfg)
-    return q.view(b, s, h, dh), k.view(b, s, hkv, dh), v.view(b, s, hkv, dh)
+    return split_heads(q, h, dh), split_heads(k, hkv, dh), split_heads(v, hkv, dh)
 
 
 def attention_apply(
@@ -234,14 +302,42 @@ def attention_apply(
     else:
         # cross attention: q from x, k/v from the encoder output (no RoPE)
         f = kv_from.shape[1]
-        q = (x @ cast(attn.wq, cfg)).view(b, s, h, dh)
-        k = (kv_from @ cast(attn.wk, cfg)).view(b, f, hkv, dh)
-        v = (kv_from @ cast(attn.wv, cfg)).view(b, f, hkv, dh)
+        kv_from = tp_input(kv_from)
+        q = split_heads(tp_input(x) @ cast(attn.wq, cfg), h, dh)
+        k = split_heads(kv_from @ cast(attn.wk, cfg), hkv, dh)
+        v = split_heads(kv_from @ cast(attn.wv, cfg), hkv, dh)
         causal, window = False, None
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=causal, window=window)       # (B, H, S, Dh)
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", "seq", "heads", None)
+    v = constrain(v, "batch", "seq", "heads", None)
+    out = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                 causal=causal, window=window)                # (B, H, S, Dh)
     out = out.transpose(1, 2).reshape(b, s, h * dh)
-    return out @ cast(attn.wo, cfg)
+    return constrain(out @ cast(attn.wo, cfg), *flags.residual_axes())
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """``flash_attention`` of ``q (B, H, Sq, Dh)`` against ``k, v (B, Hkv,
+    Skv, Dh)``.  Under a mesh the DTensors are laid out batch over the dp
+    axes and heads over "model" (``local_map``), and each rank launches the
+    kernel on its local block, forward and backward; the kernel never sees
+    a DTensor.  Where the query heads and the kv heads do not both divide
+    "model" (GQA with fewer kv heads than "model", the KV-cache fallback of
+    ``launch.sharding``), the kernel pairs query head ``h`` with kv head
+    ``h // G`` and needs whole heads and whole sequences, so the inputs are
+    redistributed to heads whole on every rank first: GSPMD's partial
+    softmax over a sequence-sharded K/V has no counterpart inside a
+    hand-written kernel."""
+    mesh = current_mesh()
+    if mesh is None:
+        return flash_attention(q, k, v, causal=causal, window=window)
+    pq = resolved_placements(("batch", "heads"), q.shape, mesh)
+    pk = resolved_placements(("batch", "heads"), k.shape, mesh)
+    if pq != pk:
+        pq = pk = resolved_placements(("batch",), q.shape, mesh)
+    fn = functools.partial(flash_attention, causal=causal, window=window)
+    return on_local_blocks(fn, (pq, pk, pk), pq)(q, k, v)
 
 
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -260,8 +356,27 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _decode_ctx(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`_decode_ctx_local`; under a mesh on each rank's local (batch,
+    kv heads) block (``local_map``): its grouped products reshape the
+    batch and head dims together, which DTensor cannot do across shards.
+    A cache whose sequence is sharded (the KV fallback) is gathered
+    whole first, where GSPMD would combine partial softmaxes."""
+    mesh = current_mesh()
+    if mesh is None:
+        return _decode_ctx_local(q, k_cache, v_cache, valid)
+    pq = resolved_placements(("batch", "heads"), q.shape, mesh)
+    pk = resolved_placements(("batch", "kv_heads"), k_cache.shape, mesh)
+    if pq != pk:   # the query heads of a kv head must be local with it
+        pq = pk = resolved_placements(("batch",), q.shape, mesh)
+    pv = None if valid is None else resolved_placements(("batch",), valid.shape, mesh)
+    return on_local_blocks(_decode_ctx_local, (pq, pk, pk, pv), pq)(
+        q, k_cache, v_cache, valid)
+
+
+def _decode_ctx_local(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, H, Dh) against a (B, Hkv, S, Dh) cache with ``valid`` (B, S),
-    every row when None → context (B, Hkv, G, Dh) float32: the grouped
+    every row when None → context (B, H * Dh) float32: the grouped
     products."""
     b, h, dh = q.shape
     hkv = k_cache.shape[1]
@@ -270,7 +385,53 @@ def _decode_ctx(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if valid is not None:
         s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return _matmul_f32(p.to(v_cache.dtype), v_cache)               # (B,Hkv,G,Dh)
+    return _matmul_f32(p.to(v_cache.dtype), v_cache).reshape(b, h * dh)  # (B,Hkv,G,Dh)
+
+
+def write_slots(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
+                v_new: torch.Tensor, slot: torch.Tensor) -> None:
+    """``cache[b, :, slot[b]] = new[b]`` for every row ``b`` of the ``(B, H,
+    S, D)`` caches, ``new (B, H, D)``, in place.  Under a mesh each rank
+    writes its local blocks of the caches as they are laid out
+    (``local_map``): its rows, its heads, and where the sequence is sharded
+    (the KV fallback) only the slots that fall in its part of it."""
+    mesh = current_mesh()
+    if mesh is None:
+        _write_slots_local(k_cache, v_cache, k_new, v_new, slot)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    pb = tuple(k_cache.placements)
+    if tuple(v_cache.placements) != pb:   # a relayout would write a copy
+        raise ValueError(f"K cache laid out {pb}, V cache {v_cache.placements}")
+    pn = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in pb)
+    ps = tuple(p if p == Shard(0) else Replicate() for p in pb)
+    seq = [j for j, p in enumerate(pb) if p == Shard(2)]   # major first
+    write = _write_slots_local
+    if seq:
+        part, coord = 0, mesh.get_coordinate()
+        for j in seq:
+            part = part * mesh.size(j) + coord[j]
+
+        def write(kb, vb, kn, vn, sl):
+            rows = kb.shape[2]
+            local = sl - part * rows
+            inside = ((local >= 0) & (local < rows))[:, None, None]
+            local = local.clamp(0, rows - 1)
+            at = torch.arange(kb.shape[0], device=kb.device)
+            kn = torch.where(inside, kn.to(kb.dtype), kb[at, :, local])
+            vn = torch.where(inside, vn.to(vb.dtype), vb[at, :, local])
+            return _write_slots_local(kb, vb, kn, vn, local)
+
+    on_local_blocks(write, (pb, pb, pn, pn, ps), [pb, pb])(
+        k_cache, v_cache, k_new, v_new, slot)
+
+
+def _write_slots_local(k_cache, v_cache, k_new, v_new, slot):
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    k_cache[rows, :, slot] = k_new.to(k_cache.dtype)
+    v_cache[rows, :, slot] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
 
 
 def attention_decode(
@@ -299,18 +460,16 @@ def attention_decode(
     slots = k_cache.shape[2]
     if update_cache:
         slot = (pos % window if window is not None else pos).clamp(max=slots - 1)
-        rows = torch.arange(b, device=x.device)
-        k_cache[rows, :, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, :, slot] = v[:, 0].to(v_cache.dtype)
+        write_slots(k_cache, v_cache, k[:, 0], v[:, 0], slot)
 
-    idx = torch.arange(slots, device=x.device)[None, :]       # (1, S_slots)
+    idx = replicate(torch.arange(slots, device=x.device)[None, :])  # (1, S_slots)
     if window is None:
         valid = idx <= pos[:, None]
     else:
         # ring buffer: slot s holds token t = pos - ((pos - s) mod W)
         valid = pos[:, None] - (pos[:, None] - idx) % window >= 0
     ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid)
-    ctx = ctx.reshape(b, h * dh).to(compute_dtype(cfg))
+    ctx = ctx.to(compute_dtype(cfg))
     return (ctx @ cast(attn.wo, cfg))[:, None, :], cache
 
 
@@ -385,7 +544,7 @@ def attention_decode_paged(
     v_cache = paged_view(v_pool, tables, block_size).contiguous()
     valid = torch.arange(k_cache.shape[2], device=x.device)[None, :] <= pos[:, None]
     ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid)
-    ctx = ctx.reshape(b, h * dh).to(compute_dtype(cfg))
+    ctx = ctx.to(compute_dtype(cfg))
     return (ctx @ cast(attn.wo, cfg))[:, None, :], cache
 
 
@@ -410,7 +569,10 @@ def mlp_init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def mlp_apply(mlp: SwiGLU, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ cast(mlp.wg, cfg)) * (x @ cast(mlp.wu, cfg))) @ cast(mlp.wd, cfg)
+    x = tp_input(x)
+    h = constrain(F.silu(x @ cast(mlp.wg, cfg)) * (x @ cast(mlp.wu, cfg)),
+                  "batch", "seq", "d_ff")
+    return constrain(h @ cast(mlp.wd, cfg), *flags.residual_axes())
 
 
 # ---------------------------------------------------------------------------
@@ -442,8 +604,11 @@ def embed_apply(embed: Embed, cfg: ModelConfig, tokens: torch.Tensor) -> torch.T
     # gathers: the same values, without a cast copy of the whole table).
     # F.embedding, not indexing: its backward sums a row's gradients in one
     # order on the CPU and on the card, where the CPU's index backward
-    # (a parallel accumulate) rounds differently run to run
-    return cast(F.embedding(tokens, embed.table), cfg)
+    # (a parallel accumulate) rounds differently run to run.  Under a mesh
+    # the table is first laid out vocab-whole, d_model over the FSDP axes,
+    # as the reference relayouts it for the lookup
+    table = constrain(embed.table, None, "embed")
+    return constrain(cast(F.embedding(tokens, table), cfg), "batch", "seq", None)
 
 
 def unembed_weight(embed: Embed, cfg: ModelConfig) -> torch.Tensor:
@@ -452,7 +617,7 @@ def unembed_weight(embed: Embed, cfg: ModelConfig) -> torch.Tensor:
 
 
 def unembed_logits(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x @ unembed_weight(embed, cfg)
+    return constrain(tp_input(x) @ unembed_weight(embed, cfg), "batch", "seq", "vocab")
 
 
 def last_token_logits(
@@ -468,7 +633,7 @@ def last_token_logits(
     if lengths is None:
         last = hidden[:, -1]
     else:
-        rows = torch.arange(hidden.shape[0], device=hidden.device)
+        rows = replicate(torch.arange(hidden.shape[0], device=hidden.device))
         last = hidden[rows, lengths.long() + offset - 1]
     return unembed_logits(embed, cfg, last[:, None])[:, 0]
 
@@ -477,7 +642,10 @@ def _chunk_nll(hx: torch.Tensor, tx: torch.Tensor, mx: torch.Tensor,
                w: torch.Tensor) -> torch.Tensor:
     """Masked summed NLL of one chunk: a ``(B, c, V)`` float32 logits slab,
     its log-sum-exp and the target logits."""
-    logits = (hx @ w).float()
+    # under a mesh the chunk's logits are gathered whole over the vocab
+    # first: DTensor's vocab-parallel gather (its masked partial) fails on
+    # this index shape, where GSPMD's take_along_axis partitions
+    logits = constrain((tp_input(hx) @ w).float(), "batch", "seq", None)
     lse = torch.logsumexp(logits, dim=-1)                         # (B, c)
     tgt = torch.gather(logits, -1, tx[..., None].long())[..., 0]
     return torch.sum((lse - tgt) * mx)
@@ -501,7 +669,7 @@ def chunked_xent(
     1)``."""
     b, s, _ = hidden.shape
     if mask is None:
-        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+        mask = replicate(torch.ones((b, s), dtype=torch.float32, device=hidden.device))
     mask = mask.float()
     c = min(chunk, s)
     w = unembed_weight(embed, cfg)

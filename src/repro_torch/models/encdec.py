@@ -36,7 +36,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from ..kernels.flash_attention.ops import flash_attention
+from ..dist.logical import constrain, current_mesh, replicate
 from .common import (
     Attention,
     Embed,
@@ -46,6 +46,7 @@ from .common import (
     _param,
     _qkv,
     apply_rope,
+    attend,
     attention_apply,
     attention_decode,
     attention_init,
@@ -58,8 +59,11 @@ from .common import (
     last_token_logits,
     mlp_apply,
     mlp_init,
+    pad_dim,
     remat,
     rmsnorm_init,
+    split_heads,
+    tp_input,
     unembed_logits,
 )
 
@@ -156,8 +160,9 @@ def encode(model: EncDec, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tenso
     ``remat``."""
     f = frames.shape[1]
     x = frames.to(compute_dtype(cfg)) + cast(model.enc_pos[:f], cfg)[None]
-    positions = torch.arange(f, device=x.device)[None, :]
+    positions = replicate(torch.arange(f, device=x.device)[None, :])
     for layer in model.enc_blocks:
+        x = constrain(x, "batch", "seq_sp", None)
         x = remat(_enc_layer, layer, cfg, x, positions)
     return model.enc_norm(x)
 
@@ -176,10 +181,11 @@ def encdec_forward(model: EncDec, cfg: ModelConfig, frames: torch.Tensor,
     under ``remat``."""
     enc_out = encode(model, cfg, frames)
     x = embed_apply(model.embed, cfg, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    positions = replicate(torch.arange(x.shape[1], device=x.device)[None, :])
     for layer in model.dec_blocks:
+        x = constrain(x, "batch", "seq_sp", None)
         x = remat(_dec_layer, layer, cfg, x, positions, enc_out)
-    return model.final_norm(x)
+    return constrain(model.final_norm(x), "batch", "seq", None)
 
 
 def encdec_loss(model: EncDec, cfg: ModelConfig, frames: torch.Tensor,
@@ -234,35 +240,48 @@ def encdec_prefill(
     f = enc_out.shape[1]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     max_len = max(max_len or s, s)
-    positions = torch.arange(s, device=x.device)[None, :]
-    cache = _zeros_cache(cfg, b, max_len, f, x.device)
+    positions = replicate(torch.arange(s, device=x.device)[None, :])
+    mesh = current_mesh()
+    cache = _zeros_cache(cfg, b, max_len, f, x.device) if mesh is None else None
+    rows = {(part, name): [] for part in ("self", "cross") for name in ("k", "v")}
+
+    def keep(part: str, i: int, kt: torch.Tensor, vt: torch.Tensor) -> None:
+        if cache is not None:     # written in place into the caches made once
+            cache[part]["k"][i, :, :, :kt.shape[2]] = kt
+            cache[part]["v"][i, :, :, :vt.shape[2]] = vt
+        else:   # DTensor rows, each padded to its cache's length, stacked below
+            pad = (max_len if part == "self" else f) - kt.shape[2]
+            rows[part, "k"].append(pad_dim(kt, 2, 0, pad))
+            rows[part, "v"].append(pad_dim(vt, 2, 0, pad))
+
     for i, layer in enumerate(model.dec_blocks):
         q, k, v = _qkv(layer.self, cfg, layer.ln1(x))
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         kc, vc = k.transpose(1, 2), v.transpose(1, 2)    # (B, Hkv, S, Dh) views
-        cache["self"]["k"][i, :, :, :s] = kc
-        cache["self"]["v"][i, :, :, :s] = vc
-        att = flash_attention(q.transpose(1, 2), kc, vc, causal=True)
+        keep("self", i, kc, vc)
+        att = attend(q.transpose(1, 2), kc, vc, causal=True)
         x = x + att.transpose(1, 2).reshape(b, s, -1) @ cast(layer.self.wo, cfg)
 
         cross = layer.cross
-        qx = layer.ln2(x) @ cast(cross.wq, cfg)
-        kx = enc_out @ cast(cross.wk, cfg)
-        vx = enc_out @ cast(cross.wv, cfg)
+        qx = tp_input(layer.ln2(x)) @ cast(cross.wq, cfg)
+        kx = tp_input(enc_out) @ cast(cross.wk, cfg)
+        vx = tp_input(enc_out) @ cast(cross.wv, cfg)
         if cfg.qkv_bias:
             qx = qx + cast(cross.bq, cfg)
             kx = kx + cast(cross.bk, cfg)
             vx = vx + cast(cross.bv, cfg)
-        kx = kx.view(b, f, hkv, dh).transpose(1, 2)       # (B, Hkv, F, Dh) views
-        vx = vx.view(b, f, hkv, dh).transpose(1, 2)
-        cache["cross"]["k"][i] = kx
-        cache["cross"]["v"][i] = vx
-        att = flash_attention(qx.view(b, s, h, dh).transpose(1, 2), kx, vx,
-                              causal=False)
+        kx = split_heads(kx, hkv, dh).transpose(1, 2)     # (B, Hkv, F, Dh) views
+        vx = split_heads(vx, hkv, dh).transpose(1, 2)
+        keep("cross", i, kx, vx)
+        att = attend(split_heads(qx, h, dh).transpose(1, 2), kx, vx, causal=False)
         x = x + att.transpose(1, 2).reshape(b, s, -1) @ cast(cross.wo, cfg)
         x = x + mlp_apply(layer.mlp, cfg, layer.ln3(x))
     x = model.final_norm(x)
+    if cache is None:
+        cdt = compute_dtype(cfg)
+        cache = {part: {name: torch.stack(rows[part, name]).to(cdt)
+                        for name in ("k", "v")} for part in ("self", "cross")}
     return last_token_logits(model.embed, cfg, x, lengths), cache
 
 
@@ -276,8 +295,8 @@ def _cross_decode(attn: Attention, cfg: ModelConfig, x: torch.Tensor,
     q = x[:, 0] @ cast(attn.wq, cfg)
     if cfg.qkv_bias:
         q = q + cast(attn.bq, cfg)
-    ctx = _decode_ctx(q.view(b, h, dh), k, v)
-    ctx = ctx.reshape(b, h * dh).to(compute_dtype(cfg))
+    ctx = _decode_ctx(split_heads(q, h, dh), k, v)
+    ctx = ctx.to(compute_dtype(cfg))
     return (ctx @ cast(attn.wo, cfg))[:, None, :]
 
 
@@ -295,7 +314,7 @@ def encdec_decode_step(
     self_kv, cross_kv = cache["self"], cache["cross"]
     for i, layer in enumerate(model.dec_blocks):
         kv = {"k": self_kv["k"][i], "v": self_kv["v"][i]}  # views: written in place
-        att, _ = attention_decode(layer.self, cfg, layer.ln1(x), pos, kv)
+        att, kv = attention_decode(layer.self, cfg, layer.ln1(x), pos, kv)
         x = x + att
         x = x + _cross_decode(layer.cross, cfg, layer.ln2(x), cross_kv["k"][i],
                               cross_kv["v"][i])

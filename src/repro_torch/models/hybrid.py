@@ -25,9 +25,10 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from .. import flags
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from ..kernels.flash_attention.ops import flash_attention
+from ..dist.logical import constrain, replicate
 from .common import (
     Attention,
     Embed,
@@ -35,6 +36,7 @@ from .common import (
     SwiGLU,
     _qkv,
     apply_rope,
+    attend,
     attention_apply,
     attention_decode,
     attention_init,
@@ -46,6 +48,7 @@ from .common import (
     last_token_logits,
     mlp_apply,
     mlp_init,
+    pad_dim,
     remat,
     rmsnorm_init,
     unembed_logits,
@@ -153,12 +156,15 @@ def hybrid_forward(model: Hybrid, cfg: ModelConfig,
     """→ (hidden (B, S, D), summed MoE aux loss).  Each layer runs under
     ``remat``."""
     x = embed_apply(model.embed, cfg, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    positions = replicate(torch.arange(x.shape[1], device=x.device)[None, :])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in model.layers:
+    per = _layout(cfg)[1]
+    for i, layer in enumerate(model.layers):
+        if i % per == 0:     # the reference's scan step: one hybrid block
+            x = constrain(x, "batch", "seq_sp", None)
         x, a = remat(_layer_forward, layer, cfg, x, positions)
         aux = aux + a
-    return model.final_norm(x), aux
+    return constrain(model.final_norm(x), "batch", "seq", None), aux
 
 
 def hybrid_loss(model: Hybrid, cfg: ModelConfig, tokens: torch.Tensor,
@@ -197,7 +203,7 @@ def hybrid_prefill(model: Hybrid, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_apply(model.embed, cfg, tokens)
     b, s, _ = x.shape
     max_len = max(max_len or s, s)
-    positions = torch.arange(s, device=x.device)[None, :]
+    positions = replicate(torch.arange(s, device=x.device)[None, :])
     cache: Cache = []
     for layer in model.layers:
         h = layer.ln_mix(x)
@@ -206,15 +212,11 @@ def hybrid_prefill(model: Hybrid, cfg: ModelConfig, tokens: torch.Tensor,
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
             kc, vc = k.transpose(1, 2), v.transpose(1, 2)   # (B, Hkv, S, Dh)
-            kv = {}
-            for name, t in (("k", kc), ("v", vc)):
-                buf = torch.zeros((b, t.shape[1], max_len, t.shape[3]), dtype=cdt,
-                                  device=x.device)
-                buf[:, :, :s] = t
-                kv[name] = buf
-            cache.append(kv)
-            att = flash_attention(q.transpose(1, 2), kc, vc, causal=True)
-            x = x + att.transpose(1, 2).reshape(b, s, -1) @ cast(layer.mixer.wo, cfg)
+            cache.append({"k": pad_dim(kc, 2, 0, max_len - s).to(cdt),
+                          "v": pad_dim(vc, 2, 0, max_len - s).to(cdt)})
+            att = attend(q.transpose(1, 2), kc, vc, causal=True)
+            x = x + constrain(att.transpose(1, 2).reshape(b, s, -1)
+                              @ cast(layer.mixer.wo, cfg), *flags.residual_axes())
         else:
             y, st = mamba_apply(layer.mixer, cfg, h, return_state=True)
             x = x + y

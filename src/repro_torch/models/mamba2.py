@@ -31,9 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import flags
 from ..configs.base import ModelConfig
+from ..dist.logical import constrain, current_mesh, on_local_blocks, resolved_placements
 from ..kernels.ssd_scan.ops import ssd_scan
-from .common import _param, cast, compute_dtype, dense_init, rmsnorm
+from .common import _param, cast, compute_dtype, dense_init, pad_dim, rmsnorm, tp_input
 
 __all__ = [
     "Mamba2",
@@ -109,51 +111,33 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     """Depthwise causal conv along S: xbc (B, S, C), w (C, K)."""
     k = w.shape[1]
     s = xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
-    for i in range(k):  # K is tiny (4)
+    pad = pad_dim(xbc, 1, k - 1, 0)
+    out = pad[:, :s, :].float() * w[:, 0]
+    for i in range(1, k):  # K is tiny (4)
         out = out + pad[:, i: i + s, :].float() * w[:, i]
     return F.silu(out + b).to(xbc.dtype)
 
 
-def mamba_apply(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
-                return_state: bool = False):
-    """Full-sequence SSD (prefill).  x (B, S, D) → (B, S, D).
+def _scan_bh(states: torch.Tensor, chunk_decay: torch.Tensor) -> torch.Tensor:
+    """``ssd_scan`` over states ``(B, C, H, P, N)`` and decays ``(B, C, H)``,
+    the (B, H) pairs flattened into the kernel's ``BH`` dim →
+    prefix states ``(B, C, H, P, N)``."""
+    b, nc, h, p, n = states.shape
+    states_bh = states.transpose(1, 2).reshape(b * h, nc, p, n)
+    decay_bh = chunk_decay.transpose(1, 2).reshape(b * h, nc)
+    prefix = ssd_scan(states_bh, decay_bh)             # (B*H, C, P, N)
+    return prefix.reshape(b, h, nc, p, n).transpose(1, 2)
 
-    With ``return_state`` also returns the recurrent state after the last
-    token, ``{"ssm": (B, H, P, N) float32, "conv": (B, K-1, conv_dim)}``,
-    so decode can continue from a prefill.  One ``ssd_scan`` call."""
-    cdt = compute_dtype(cfg)
-    b, s_true, _ = x.shape
-    d_inner, h, p, n, _ = _dims(cfg)
-    q = min(cfg.ssm_chunk, s_true)
-    pad = (q - s_true % q) % q
-    if pad:
-        # pad to a chunk multiple; padded steps get dt = 0 below, which
-        # makes them exact no-ops on the state (decay e^0 = 1, no input)
-        x = F.pad(x, (0, 0, 0, pad))
-    s = s_true + pad
-    nc = s // q
 
-    proj = x @ cast(m.in_proj, cfg)
-    z, xbc_pre, dt_raw = _split_proj(cfg, proj)
-    xbc = _causal_conv(xbc_pre, m.conv_w, m.conv_b)
-    xs = xbc[..., :d_inner].reshape(b, s, h, p)
-    bmat = xbc[..., d_inner: d_inner + n]              # (B, S, N)
-    cmat = xbc[..., d_inner + n:]                      # (B, S, N)
-
-    dt = _softplus(dt_raw.float() + m.dt_bias)         # (B, S, H)
-    if pad:
-        valid = (torch.arange(s, device=x.device) < s_true)[None, :, None]
-        dt = dt * valid
-    a = -torch.exp(m.a_log)                            # (H,) negative
-    da = dt * a                                        # (B, S, H) <= 0
-
-    xs_c = xs.reshape(b, nc, q, h, p).float()
-    b_c = bmat.reshape(b, nc, q, n).float()
-    c_c = cmat.reshape(b, nc, q, n).float()
-    dt_c = dt.reshape(b, nc, q, h)
-    cum = torch.cumsum(da.reshape(b, nc, q, h), dim=2)  # (B, C, Q, H)
+def _ssd(xs_c: torch.Tensor, b_c: torch.Tensor, c_c: torch.Tensor,
+         dt_c: torch.Tensor, da_c: torch.Tensor, d_skip: torch.Tensor):
+    """The SSD of chunked float32 inputs — ``xs_c (B, C, Q, H, P)``,
+    ``b_c, c_c (B, C, Q, N)``, ``dt_c, da_c (B, C, Q, H)``, ``d_skip (H,)``
+    → (y ``(B, C, Q, H, P)``, the state after the last chunk ``(B, H, P,
+    N)``): the intra-chunk products, the chunk states, the inter-chunk
+    recurrence (the ``ssd_scan`` kernel) and the inter-chunk output."""
+    q = xs_c.shape[2]
+    cum = torch.cumsum(da_c, dim=2)                    # (B, C, Q, H)
 
     # intra-chunk: w[q_, k_] = C_q·B_k · exp(cum_q - cum_k) · dt_k, causal
     scores = torch.einsum("bcqn,bckn->bcqk", c_c, b_c)[:, :, None]  # (B,C,1,Q,Q)
@@ -162,7 +146,7 @@ def mamba_apply(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     # diagonal cum_q - cum_k >= 0 can exceed float32's exp range, and the
     # reference's where(causal, exp(.), 0) then has gradient 0 * inf = NaN
     # (the values are the same: exp(-inf) = 0)
-    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    causal = torch.ones((q, q), dtype=torch.bool, device=xs_c.device).tril()
     dmat = torch.exp(torch.where(causal, cum_h[..., :, None] - cum_h[..., None, :],
                                  -math.inf))
     dt_h = dt_c.movedim(3, 2)                          # (B, C, H, Q)
@@ -180,15 +164,81 @@ def mamba_apply(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
 
     # inter-chunk recurrence (the ssd_scan kernel)
     chunk_decay = torch.exp(last[..., 0])              # (B, C, H)
-    states_bh = states.transpose(1, 2).reshape(b * h, nc, p, n)
-    decay_bh = chunk_decay.transpose(1, 2).reshape(b * h, nc)
-    prefix = ssd_scan(states_bh, decay_bh)             # (B*H, C, P, N)
-    prefix = prefix.reshape(b, h, nc, p, n).transpose(1, 2)
+    prefix = _scan_bh(states, chunk_decay)             # (B, C, H, P, N)
 
     # inter-chunk output: y_q += (C_q · prefix) * exp(cum_q)
     edecay = torch.exp(cum_h).movedim(2, 3)            # (B, C, Q, H)
     y_inter = torch.einsum("bcqn,bchpn->bcqhp", c_c, prefix) * edecay[..., None]
-    y = y_intra + y_inter + m.d_skip[None, None, None, :, None] * xs_c
+    y = y_intra + y_inter + d_skip[None, None, None, :, None] * xs_c
+    # final state = decay_last * prefix_last + states_last (exact with
+    # padding: padded steps were dt = 0 no-ops)
+    final = chunk_decay[:, -1][..., None, None] * prefix[:, -1] + states[:, -1]
+    return y, final
+
+
+def _ssd_over_blocks(xs_c, b_c, c_c, dt_c, da_c, d_skip):
+    """:func:`_ssd`; under a mesh on each rank's local (batch, heads) block
+    (``local_map``), forward and backward.  Its batched products, its
+    cumsum (whose gradient is a flip) and the scan's flatten of ``(B, H)``
+    into the kernel's ``BH`` dim have no DTensor rule for batch and heads
+    sharded over two mesh axes in every torch version the port runs on,
+    and every step of it is local to a (batch, head) pair: so the inputs
+    are laid out batch over the dp axes and heads over "model" (or whole,
+    where they don't divide) and each rank runs its own block; the scan
+    never sees a DTensor."""
+    mesh = current_mesh()
+    if mesh is None:
+        return _ssd(xs_c, b_c, c_c, dt_c, da_c, d_skip)
+    heads = ("batch", None, None, "ssm_heads")
+    p_x = resolved_placements(heads, xs_c.shape, mesh)
+    p_bc = resolved_placements(("batch",), b_c.shape, mesh)
+    p_dt = resolved_placements(heads, dt_c.shape, mesh)
+    p_d = resolved_placements(("ssm_heads",), d_skip.shape, mesh)
+    p_final = resolved_placements(("batch", "ssm_heads"), xs_c.shape[:1] + xs_c.shape[3:4],
+                                  mesh)
+    return on_local_blocks(_ssd, (p_x, p_bc, p_bc, p_dt, p_dt, p_d), [p_x, p_final])(
+        xs_c, b_c, c_c, dt_c, da_c, d_skip)
+
+
+def mamba_apply(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
+                return_state: bool = False):
+    """Full-sequence SSD (prefill).  x (B, S, D) → (B, S, D).
+
+    With ``return_state`` also returns the recurrent state after the last
+    token, ``{"ssm": (B, H, P, N) float32, "conv": (B, K-1, conv_dim)}``,
+    so decode can continue from a prefill.  One ``ssd_scan`` call."""
+    cdt = compute_dtype(cfg)
+    b, s_true, _ = x.shape
+    d_inner, h, p, n, _ = _dims(cfg)
+    q = min(cfg.ssm_chunk, s_true)
+    pad = (q - s_true % q) % q
+    if pad:
+        # pad to a chunk multiple; padded steps get dt = 0 below, which
+        # makes them exact no-ops on the state (decay e^0 = 1, no input)
+        x = pad_dim(x, 1, 0, pad)
+    s = s_true + pad
+    nc = s // q
+
+    proj = tp_input(x) @ cast(m.in_proj, cfg)
+    z, xbc_pre, dt_raw = _split_proj(cfg, proj)
+    xbc_pre = constrain(xbc_pre, "batch", "seq", "conv_dim")
+    xbc = _causal_conv(xbc_pre, m.conv_w, m.conv_b)
+    xs = xbc[..., :d_inner].reshape(b, s, h, p)
+    bmat = xbc[..., d_inner: d_inner + n]              # (B, S, N)
+    cmat = xbc[..., d_inner + n:]                      # (B, S, N)
+
+    dt = _softplus(dt_raw.float() + m.dt_bias)         # (B, S, H)
+    if pad:
+        valid = (torch.arange(s, device=x.device) < s_true)[None, :, None]
+        dt = dt * valid
+    a = -torch.exp(m.a_log)                            # (H,) negative
+    da = dt * a                                        # (B, S, H) <= 0
+
+    xs_c = xs.reshape(b, nc, q, h, p).float()
+    b_c = bmat.reshape(b, nc, q, n).float()
+    c_c = cmat.reshape(b, nc, q, n).float()
+    y, final = _ssd_over_blocks(xs_c, b_c, c_c, dt.reshape(b, nc, q, h),
+                                da.reshape(b, nc, q, h), m.d_skip)
     y = y.reshape(b, s, d_inner).to(cdt)
 
     # gated RMSNorm then out projection
@@ -196,12 +246,9 @@ def mamba_apply(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     out = y @ cast(m.out_proj, cfg)
     if pad:
         out = out[:, :s_true]
+    out = constrain(out, *flags.residual_axes())
     if not return_state:
         return out
-    # final state = decay_last * prefix_last + states_last (exact with
-    # padding: padded steps were dt = 0 no-ops)
-    final = (chunk_decay[:, -1][..., None, None] * prefix[:, -1]
-             + states[:, -1])
     # a copy: a view would keep the whole (B, S, d_proj) projection alive
     conv_tail = xbc_pre[:, s_true - (cfg.ssm_conv - 1): s_true, :].clone()
     return out, {"ssm": final, "conv": conv_tail}
@@ -223,7 +270,7 @@ def mamba_decode(m: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     cdt = compute_dtype(cfg)
     b = x.shape[0]
     d_inner, h, p, n, _ = _dims(cfg)
-    proj = x[:, 0] @ cast(m.in_proj, cfg)                         # (B, d_proj)
+    proj = tp_input(x)[:, 0] @ cast(m.in_proj, cfg)                         # (B, d_proj)
     z, xbc_new, dt_raw = _split_proj(cfg, proj)
 
     # conv ring: state["conv"] (B, K-1, conv_dim) holds the last K-1 inputs

@@ -24,6 +24,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..dist.logical import constrain
 from .common import (
     Embed,
     RMSNorm,
@@ -96,9 +97,10 @@ def ssm_forward(model: SSM, cfg: ModelConfig,
     ``remat``."""
     x = embed_apply(model.embed, cfg, tokens)
     for layer in model.layers:
+        x = constrain(x, "batch", "seq_sp", None)
         x = remat(_layer_forward, layer, cfg, x)
-    return model.final_norm(x), torch.zeros((), dtype=torch.float32,
-                                            device=x.device)
+    return (constrain(model.final_norm(x), "batch", "seq", None),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def ssm_loss(model: SSM, cfg: ModelConfig, tokens: torch.Tensor,

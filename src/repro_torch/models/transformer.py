@@ -34,8 +34,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+
+from .. import flags
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..dist.logical import constrain, replicate
 from ..kernels.flash_attention.ops import flash_attention
 from .common import (
     Attention,
@@ -44,6 +47,7 @@ from .common import (
     SwiGLU,
     _qkv,
     apply_rope,
+    attend,
     attention_apply,
     attention_decode,
     attention_decode_paged,
@@ -56,6 +60,7 @@ from .common import (
     last_token_logits,
     mlp_apply,
     mlp_init,
+    pad_dim,
     paged_view,
     paged_write_rows,
     remat,
@@ -198,12 +203,17 @@ def lm_forward(
     """→ (hidden (B, S, D), aux_loss scalar: the routers' summed over the
     MoE layers, 0 without one).  Each layer runs under ``remat``."""
     x = _embed_inputs(model, cfg, tokens, extra_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    positions = replicate(torch.arange(x.shape[1], device=x.device)[None, :])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, window in zip(model.layers, model.windows()):
+    per = len(layer_windows(cfg))
+    for i, (layer, window) in enumerate(zip(model.layers, model.windows())):
+        if i % per == 0:     # the reference's scan step: a block of `per` layers
+            x = constrain(x, "batch", "seq_sp", None)
         x, a = remat(_layer_forward, layer, cfg, x, positions, window)
         aux = aux + a
-    return model.final_norm(x), aux
+        if (i + 1) % per == 0:
+            x = constrain(x, "batch", "seq_sp", None)
+    return constrain(model.final_norm(x), "batch", "seq", None), aux
 
 
 def lm_loss(
@@ -272,9 +282,12 @@ def lm_prefill(
     x = _embed_inputs(model, cfg, tokens, extra_embeds)
     b, s, _ = x.shape
     max_len = max(max_len or s, s)
-    positions = torch.arange(s, device=x.device)[None, :]
+    positions = replicate(torch.arange(s, device=x.device)[None, :])
     cache: Cache = []
-    for layer, window in zip(model.layers, model.windows()):
+    per = len(layer_windows(cfg))
+    for i, (layer, window) in enumerate(zip(model.layers, model.windows())):
+        if i % per == 0:
+            x = constrain(x, "batch", "seq_sp", None)
         h = layer.ln1(x)
         q, k, v = _qkv(layer.attn, cfg, h)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -286,17 +299,12 @@ def lm_prefill(
             kv = {"k": torch.roll(kc[:, :, s - window:], s % window, 2).to(cdt),
                   "v": torch.roll(vc[:, :, s - window:], s % window, 2).to(cdt)}
         else:
-            slots = _slot_count(window, max_len)
-            kv = {}
-            for name, t in (("k", kc), ("v", vc)):
-                buf = torch.zeros((b, t.shape[1], slots, t.shape[3]), dtype=cdt,
-                                  device=x.device)
-                buf[:, :, :s] = t
-                kv[name] = buf
+            pad = _slot_count(window, max_len) - s
+            kv = {"k": pad_dim(kc, 2, 0, pad).to(cdt), "v": pad_dim(vc, 2, 0, pad).to(cdt)}
         cache.append(kv)
-        attn = flash_attention(q.transpose(1, 2), kc, vc, causal=True,
-                               window=window)
-        x = x + attn.transpose(1, 2).reshape(b, s, -1) @ cast(layer.attn.wo, cfg)
+        attn = attend(q.transpose(1, 2), kc, vc, causal=True, window=window)
+        x = x + constrain(attn.transpose(1, 2).reshape(b, s, -1)
+                          @ cast(layer.attn.wo, cfg), *flags.residual_axes())
         x = x + _ffn(layer, cfg, layer.ln2(x))[0]
     x = model.final_norm(x)
     offset = extra_embeds.shape[1] if extra_embeds is not None else 0

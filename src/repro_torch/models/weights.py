@@ -59,6 +59,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
+from ..dist.logical import whole
 from .common import Attention, Embed, RMSNorm, SwiGLU, compute_dtype
 from .encdec import DecoderLayer as EncDecLayer, EncDec, EncoderLayer
 from .hybrid import Hybrid, HybridLayer, _layout
@@ -348,14 +349,14 @@ def reference_layout(model) -> Dict[str, Tuple[Tuple[int, ...], List[str]]]:
 
 def named_to_reference(model, named: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Tensors keyed by ``model``'s parameter names (the parameters, their
-    gradients, moments or residuals) → host copies in the reference's
-    stacked layout, in their own dtype."""
+    gradients, moments or residuals; DTensors are gathered whole) → host
+    copies in the reference's stacked layout, in their own dtype."""
     out = {}
     for ref, (lead, names) in reference_layout(model).items():
         if not lead:
-            out[ref] = named[names[0]].detach().to("cpu", copy=True)
+            out[ref] = whole(named[names[0]].detach()).to("cpu", copy=True)
             continue
-        ts = [named[n].detach().cpu() for n in names]
+        ts = [whole(named[n].detach()).cpu() for n in names]
         out[ref] = torch.stack(ts).reshape(*lead, *ts[0].shape)
     return out
 

@@ -166,7 +166,11 @@ class ContinuousEngine:
         scfg: ServeConfig = ServeConfig(),
         prefix_cache: bool = True,
         device: DeviceLike = "cuda",
+        mesh=None,
     ):
+        if mesh is not None:
+            raise ValueError("the continuous engine serves on one device and "
+                             "takes no mesh (serve a mesh with the static Engine)")
         self.cfg = cfg
         self.api = build_model(cfg)
         if not self.api.supports_paged:

@@ -11,7 +11,10 @@ the decoupled decay ``p - lr * (step + wd * p)``.  ``torch.optim.AdamW``
 applies its decay as ``p * (1 - lr * wd)`` before the step, which rounds
 otherwise, so the update is written out here.  Unlike the reference's
 functional update, :func:`adamw_update` writes the new parameters and
-moments into their tensors in place (no second copy of the state).
+moments into their tensors in place (no second copy of the state).  The
+update is plain per-tensor arithmetic and ``copy_`` (no ``_foreach_*``
+call), each of which DTensor shards, so the same code updates a state
+laid out over a mesh.
 """
 
 from __future__ import annotations
@@ -72,10 +75,11 @@ def adamw_init(params: Named, cfg: Optional[AdamWConfig] = None) -> dict:
     """Zero moments beside each parameter and ``count`` 0."""
     m_dt = torch.bfloat16 if cfg and cfg.m_dtype == "bfloat16" else torch.float32
     device = next(iter(params.values())).device
+    # zeros_like: a DTensor parameter gets moments laid out as it is
     return {
-        "m": {n: torch.zeros(p.shape, dtype=m_dt, device=p.device)
+        "m": {n: torch.zeros_like(p, dtype=m_dt, requires_grad=False)
               for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "v": {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
               for n, p in params.items()},
         "count": torch.zeros((), dtype=torch.int32, device=device),
     }

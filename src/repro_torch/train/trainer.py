@@ -8,8 +8,19 @@ checkpoint sees the same data as the uninterrupted run.  Checkpoints hold
 the train state under the reference's names
 (:func:`~repro_torch.models.weights.state_to_reference`): a run of either
 package resumes from the other's.  The device is explicit (``"cuda"`` by
-default); a mesh (the distribution layer, ROADMAP Queue 1 item 10) is
-not ported and raises.  The batches hold tokens only, as the reference's
+default).
+
+Over a mesh (``Trainer(..., mesh=)``, every rank of the process group
+running the same trainer) the parameters and AdamW's ``m`` and ``v`` are
+DTensors laid out by ``launch.sharding.state_shardings`` from the
+parameters' logical specs; ``count`` and ``step`` stay plain 0-dim
+tensors, which DTensor's ops read as replicated scalars.  Each step's global batch
+is spread over the mesh's data-parallel axes and the step runs under
+``use_mesh`` (the reference runs it inside ``with mesh:``).  A checkpoint
+holds whole tensors, gathered by every rank and written by rank 0, so it
+restores into an unsharded trainer and into the reference.
+
+The batches hold tokens only, as the reference's
 do, so the encoder-decoder family, whose loss also reads audio frames,
 cannot be trained here (:func:`require_token_model` raises); its loss and
 gradients run through ``build_model(cfg).loss`` and autograd.
@@ -30,7 +41,15 @@ from ..data.pipeline import IndexedDataset
 from ..data.sampler import GlobalSampler
 from ..device import DeviceLike, resolve_device
 from ..dist.compress import ErrorFeedbackCompressor, make_compressor
+from ..dist.logical import use_mesh, whole
+from ..launch.sharding import (
+    batch_shardings,
+    distribute,
+    distribute_params,
+    state_shardings,
+)
 from ..models.registry import build_model
+from ..models.specs import param_specs
 from ..models.weights import (
     load_state_reference,
     state_reference_names,
@@ -89,11 +108,6 @@ class Trainer:
         n_dp: int = 1,
         device: DeviceLike = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer over a mesh is not ported yet (ROADMAP Queue 1 item 10, "
-                "the distribution layer); pass mesh=None"
-            )
         require_token_model(model_cfg)
         self.model_cfg = model_cfg
         self.tcfg = tcfg
@@ -103,6 +117,11 @@ class Trainer:
         self.dp_rank = dp_rank
         self.n_dp = n_dp
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a trainer on "
+                             f"{self.device}")
+        # this process's rank: its heartbeat file; rank 0 writes checkpoints
+        self._rank = torch.distributed.get_rank() if mesh is not None else dp_rank
         self.api = build_model(model_cfg)
         self.sampler = GlobalSampler(
             n_examples=len(dataset),
@@ -110,7 +129,7 @@ class Trainer:
             seed=tcfg.seed,
         )
         self.ckpt = CheckpointManager(self.workdir / "ckpt", keep_last=tcfg.keep_last)
-        self.heartbeat = Heartbeat(self.workdir, dp_rank)
+        self.heartbeat = Heartbeat(self.workdir, self._rank)
         self._compressor = tcfg.make_compressor()
         self._step_fn = make_train_step(self.api, tcfg.opt, tcfg.grad_accum,
                                         self._compressor)
@@ -122,6 +141,15 @@ class Trainer:
         g = torch.Generator(device=self.device)
         g.manual_seed(self.tcfg.seed)
         state = make_train_state(self.api, g, self.tcfg.opt, self.device)
+        if self.mesh is not None:
+            model = state["model"]
+            specs = param_specs(model)
+            sh = state_shardings(self.mesh, specs,
+                                 {n: p.shape for n, p in model.named_parameters()})
+            distribute_params(model, self.mesh, specs)          # sh["params"]
+            for k in ("m", "v"):
+                state["opt"][k] = {n: distribute(t, self.mesh, sh["opt"][k][n])
+                                   for n, t in state["opt"][k].items()}
         if self._compressor is not None:
             state[self._compressor.state_key] = self._compressor.init(
                 dict(state["model"].named_parameters())
@@ -140,7 +168,11 @@ class Trainer:
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """Step ``step``'s batch of this dp rank, on the trainer's device."""
         batch_np = self.dataset.batch_for(self.sampler, step, self.dp_rank, self.n_dp)
-        return {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
+        batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
+        if self.mesh is None:
+            return batch
+        pls = batch_shardings(self.mesh, batch)
+        return {k: distribute(v, self.mesh, pls[k]) for k, v in batch.items()}
 
     # -- run ----------------------------------------------------------------
 
@@ -160,6 +192,10 @@ class Trainer:
         ``grad_norm``, ``lr`` and ``dt`` (host seconds to the loss read
         back), and ``ckpt_s`` where a checkpoint followed it.
         """
+        with use_mesh(self.mesh):
+            return self._run(until_step, state, on_step, die_at_step)
+
+    def _run(self, until_step, state, on_step, die_at_step):
         until = until_step if until_step is not None else self.tcfg.steps
         if state is None:
             start, state = self.maybe_restore(self.init_state())
@@ -170,12 +206,12 @@ class Trainer:
             batch = self.batch(step)
             t0 = time.perf_counter()
             state, metrics = self._step_fn(state, batch)
-            loss = float(metrics["loss"])
+            loss = float(whole(metrics["loss"]))
             rec = {
                 "step": step,
                 "loss": loss,
-                "grad_norm": float(metrics["grad_norm"]),
-                "lr": float(metrics["lr"]),
+                "grad_norm": float(whole(metrics["grad_norm"])),
+                "lr": float(whole(metrics["lr"])),
                 "dt": time.perf_counter() - t0,
             }
             history.append(rec)
@@ -187,7 +223,10 @@ class Trainer:
                 return done, state, history  # crashed: no checkpoint written
             if done % self.tcfg.ckpt_every == 0 or done == until:
                 t0 = time.perf_counter()
-                self.ckpt.save(done, state_to_reference(state),
-                               meta={"loss": loss}, blocking=True)
+                named = state_to_reference(state)   # every rank gathers
+                if self._rank == 0 or self.mesh is None:
+                    self.ckpt.save(done, named, meta={"loss": loss}, blocking=True)
+                if self.mesh is not None:
+                    torch.distributed.barrier()    # written before anyone reads
                 rec["ckpt_s"] = time.perf_counter() - t0
         return until, state, history

@@ -24,6 +24,8 @@ from repro.kernels.flash_attention.ref import (
 )
 from repro_torch.kernels import flash_attention
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels import work
+from repro_torch.kernels.work import visible_pairs
 
 # (B, Hq, Hkv, Sq, Skv, D, causal, window): tests/test_kernels.py FA_CASES
 FA_CASES = [
@@ -176,7 +178,14 @@ def test_entry_point_dispatch_and_checks():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, kv, kv)
     with pytest.raises(ValueError, match="unsupported devices"):
-        flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+        flash_attention(q, kv.to("meta"), kv.to("meta"))        # mixed devices
+    # meta tensors (the dry-run): an empty output, the kernel's work counted
+    with work.counting() as counts:
+        out = flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert counts == {"flash_attention": {
+        "calls": 1, "flops": 4 * 4 * 32 * visible_pairs(8, 8, True, None),
+        "bytes": 4 * 32 * (2 * 4 * 8 + 2 * 2 * 8)}}
     with pytest.raises(ValueError, match="multiple"):
         flash_attention(torch.zeros((1, 3, 8, 32)), kv, kv)
     assert flash_attention_cuda.launches == before

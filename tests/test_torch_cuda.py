@@ -829,3 +829,69 @@ def test_train_smoke_on_the_card_matches_the_cpu(cuda):
     for a, b in zip(gc, gg):
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-4, rtol=1e-3)
         assert bool((b != 0).any()) == bool((a != 0).any())
+
+
+# ---------------------------------------------------------------------------
+# the kernels under a mesh (a 1x1 DeviceMesh over a one-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_mesh(cuda):
+    from repro_torch.launch.mesh import make_mesh
+
+    yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    torch.distributed.destroy_process_group()
+
+
+def test_attention_under_a_1x1_mesh_equals_the_kernel(cuda_mesh):
+    """``models.common.attend`` on DTensors (local_map) launches the kernel
+    on the local block: bit for bit the unsharded kernel's output, on the
+    tensor-core route."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.logical import use_mesh
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.common import attend
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn((2, s, h, 128), generator=g, device="cuda",
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for s, h in ((512, 8), (512, 2), (512, 2)))
+    want = flash_attention(q, k, v, causal=True)
+    rep = [Replicate(), Replicate()]
+    before = flash_attention_cuda.tc_launches
+    with use_mesh(cuda_mesh):
+        got = attend(*(DTensor.from_local(t, cuda_mesh, rep) for t in (q, k, v)),
+                     causal=True)
+    assert isinstance(got, DTensor)
+    assert flash_attention_cuda.tc_launches == before + 1
+    assert torch.equal(got.full_tensor(), want)
+
+
+def test_scan_under_a_1x1_mesh_equals_the_kernel(cuda_mesh):
+    """``models.mamba2._ssd_over_blocks`` on DTensors (local_map): the SSD
+    core with its ``ssd_scan`` launch on the local block, bit for bit the
+    unsharded one."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.dist.logical import use_mesh
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models.mamba2 import _ssd, _ssd_over_blocks
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    b, c, q, h, p, n = 2, 4, 64, 16, 64, 128
+    xs = torch.randn((b, c, q, h, p), generator=g, device="cuda")
+    bm, cm = (torch.randn((b, c, q, n), generator=g, device="cuda") for _ in range(2))
+    dt = torch.rand((b, c, q, h), generator=g, device="cuda") * 0.1
+    da = -dt * torch.rand((h,), generator=g, device="cuda")
+    d_skip = torch.ones((h,), device="cuda")
+    args = (xs, bm, cm, dt, da, d_skip)
+    want = _ssd(*args)
+    rep = [Replicate(), Replicate()]
+    before = ssd_scan_cuda.launches
+    with use_mesh(cuda_mesh):
+        got = _ssd_over_blocks(*(DTensor.from_local(t, cuda_mesh, rep) for t in args))
+    assert ssd_scan_cuda.launches == before + 1
+    for a, w in zip(got, want):
+        assert torch.equal(a.full_tensor(), w)

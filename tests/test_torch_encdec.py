@@ -182,8 +182,9 @@ def test_prefill_calls_flash_attention_three_times_a_layer_pair(monkeypatch):
         calls.append((q.shape[2], k.shape[2], causal, window))
         return flash_attention(q, k, v, causal, window, scale)
 
+    # every call, the encoder's, the decoder's and the prefill's, goes
+    # through common.attend
     monkeypatch.setattr(common, "flash_attention", counted)
-    monkeypatch.setattr(E, "flash_attention", counted)
     f, s = t_cfg.enc_frames, 9
     E.encdec_prefill(model, t_cfg, torch.zeros((1, f, t_cfg.d_model)),
                      _t(_tokens(5, 1, s)))

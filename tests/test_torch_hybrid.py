@@ -137,8 +137,11 @@ def test_moe_apply_parity(no_drop):
 
 
 def test_moe_apply_over_a_mesh_raises_naming_its_item():
+    """moe_apply reads its mesh from use_mesh: a mesh= that is not the
+    active one (here none is active) raises, naming where the mesh comes
+    from."""
     _, t_cfg, _, m = _moe()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="use_mesh"):
         TMoE.moe_apply(m, t_cfg, torch.zeros((1, 2, t_cfg.d_model)), mesh=object())
 
 

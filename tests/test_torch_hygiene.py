@@ -1,7 +1,9 @@
 """Import hygiene of the port: ``repro_torch`` stands alone.
 
 The port imports torch and numpy, never JAX, Triton or anything of the
-reference package ``repro`` (``repro_torch`` itself is a different name).
+reference package ``repro`` (``repro_torch`` itself is a different name),
+and the fake process group of ``torch.testing`` only inside the dry-run's
+functions.
 Checked two ways: a fresh interpreter imports every module of the port and
 then finds none of those names in ``sys.modules``, and a scan of the
 port's sources and ``chip_smoke.py`` finds no such import statement.
@@ -27,7 +29,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(
     n for n in sys.modules
     if n in ("jax", "jaxlib", "triton", "repro")
-    or n.startswith(("jax.", "jaxlib.", "triton.", "repro."))
+    or n.startswith(("jax.", "jaxlib.", "triton.", "repro.",
+                     "torch.testing._internal.distributed"))
 )
 print(json.dumps({"imported": names, "forbidden": bad}))
 """
@@ -77,8 +80,28 @@ def test_importing_every_port_module_pulls_in_no_jax_triton_or_repro():
                 "repro_torch.kernels.hash_mix.ops",
                 "repro_torch.serve.kvcache", "repro_torch.serve.scheduler",
                 "repro_torch.configs.moonshot_v1_16b_a3b",
-                "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.flags"):
+                "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.flags",
+                "repro_torch.dist.logical", "repro_torch.launch.mesh",
+                "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+                "repro_torch.launch.roofline", "repro_torch.launch.report",
+                "repro_torch.models.specs", "repro_torch.kernels.work"):
         assert mod in report["imported"]
+
+
+# an import statement at the start of a line: a module-level import
+_TESTING = re.compile(r"^(?:import|from)\s+torch\.testing\b", re.M)
+
+
+def test_no_module_imports_torch_testing_when_imported():
+    """The fake process group (``torch.testing``'s) is imported inside the
+    dry-run's functions only: ``import repro_torch`` and every module of it
+    leave it out (the probe above), and no port source imports
+    ``torch.testing`` at module level."""
+    offenders = [str(p.relative_to(ROOT)) for p in sorted(PORT.rglob("*.py"))
+                 if _TESTING.search(p.read_text())]
+    assert offenders == []
+    dryrun = (PORT / "launch" / "dryrun.py").read_text()
+    assert "from torch.testing._internal.distributed.fake_pg import FakeStore" in dryrun
 
 
 def test_no_forbidden_import_statements_in_port_sources():
