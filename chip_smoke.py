@@ -86,19 +86,35 @@
    4,096, served twice: the two runs must give the same tokens, and
    ``flash_attention`` must have launched exactly once per layer per
    prefill, all on the tensor-core route (launch counts set to 0 just
-   before the phase).  Then a third
+   before the phase).  The served engine decodes by replaying a CUDA
+   graph (``Engine``'s default on the card: captured in the first run,
+   whose warm-up and capture run the step's Python, so a kernel launched
+   in decode would still be counted there).  Then a third
    ``generate`` of the served engine under ``torch.profiler``: for its
    prefill and its decode, the card's busy share and the kernels that take
-   the most device time.  The same weights then serve through
+   the most device time.  Then the same weights through an eager engine
+   and the graph engine in turns (eager, graph, eager, graph: one
+   process's runs differ by more than 10%), tokens identical across all
+   four, each run's decode tokens/s, ITL p50/p99 and busy share (CUDA
+   events around each step or replay: ``StepClock``), capture ms, replays
+   and own peak, ``flash_attention`` once per layer per prefill and never
+   in decode, and the eager engine under the profiler.  Then one reading
+   of ``flags.DECODE_CHUNKED`` at ``max_len`` 16,384: the first decode
+   step's bf16 logits chunked and one-pass against the same step in
+   float32 (the chunked error at most ``CHUNKED_ERR_RATIO`` times the
+   one-pass error) and graph decode tokens/s both ways.  The same weights then serve through
    ``ContinuousEngine`` (8 slots, blocks of 16 rows, ``max_len`` 2,080, the
-   launcher's pool of 1,172 blocks): 16 requests from 4 client threads,
+   launcher's pool of 1,172 blocks; its greedy step a CUDA graph, every
+   decode step a replay): 16 requests from 4 client threads,
    the 8 prompts and then 8 that reuse a block-aligned prefix of 1,024 or
    1,536 tokens of a long one, so prefix hits send ``lm_prefill_suffix``
    through ``flash_attention`` with ``Skv > Sq``.  TTFT and ITL p50/p99,
    tokens/s, the prefix hit rate and ``flash_attention`` launches split
    into full and suffix prefill (all on the tensor-core route) are
    printed, and after ``close(drain=True)`` ``BlockManager.check()`` must
-   pass and no block may stay in use.  Then parity in float32 (yi-6b at
+   pass and no block may stay in use; then an eager and a graph
+   ``ContinuousEngine`` (prefix cache off) serve the 8 prompts in turns,
+   tokens identical, as above.  Then parity in float32 (yi-6b at
    full width, 2 layers): the continuous engine's greedy tokens equal the
    static engine's, prefix on equals off (a differing token passes only
    where both tokens lie within ``NEAR_TIE`` of the top logit, printed),
@@ -117,7 +133,9 @@
    twice: the two runs must give the same tokens, and ``ssd_scan`` must
    have launched exactly 48 times per prefill and never in decode (launch
    counts set to 0 just before the phase).  Then the served engine under
-   ``torch.profiler``, as in step 6.
+   ``torch.profiler`` and the eager/graph turns, as in step 6; then the
+   same turns on jamba's smoke config (attention, Mamba and MoE layers,
+   weights drawn on the card).
 9. Encoder-decoder: whisper-small at full width cut to 2 encoder and 2
    decoder layers, float32 with TF32 off, one set of weights on the card
    and the CPU, the same seeded random frames (2 x 1,500 x 768) and two
@@ -131,7 +149,8 @@
    448-token text context), served twice with the same tokens, 36
    tensor-core ``flash_attention`` launches a prefill (12 encoder, 12
    decoder self, 12 cross), the cross cache's bytes (12 x 2 x 8 x 12 x
-   1,500 x 64 x 2 B), and the engine profiled as in step 6.
+   1,500 x 64 x 2 B), and the engine profiled and the eager/graph turns
+   as in step 6 (the cross cache is a static buffer of the graph too).
 10. MoE: moonshot-v1-16b-a3b at full width cut to 2 layers, float32, card
    against CPU: the router's top-6 experts first (flips only at a
    probability near-tie pass), then prefill logits within
@@ -140,6 +159,8 @@
    1,408, top-6), bf16, drawn on the card, served as in step 6 with
    ``max_len`` 2,080 (48 tensor-core ``flash_attention`` launches a
    prefill, the phase's own peak memory, dropped assignments), profiled,
+   the eager/graph turns as in step 6 (the MoE dispatch has fixed shapes
+   in decode, so it is captured),
    and 8 requests through ``ContinuousEngine`` on the same weights
    (prefix sharing off for MoE): every request completes; SLO percentiles.
 11. Training.  In the kernel phase: ``ssd_scan``'s backward at
@@ -165,11 +186,15 @@
    2,048 tokens of the index-backed corpus, bf16 compute over float32
    masters and moments): mamba2-1.3b at 48 layers for 5 steps and yi-6b
    cut to 4 of its 32 layers for 3 (its 6.06B parameters with float32
-   moments need about 97 GB: more than the card), with step ms, tokens/s,
+   moments need about 97 GB: more than the card), under the remat policy
+   "names" (the default), with step ms, tokens/s,
    peak memory, every kernel's launches a step (144 ``ssd_scan``, 8
    tensor-core ``flash_attention``), one more step under the profiler
    (the attention backward's share) and the final checkpoint's seconds
-   and bytes (then deleted).
+   and bytes (then deleted); then 3 more steps of the same state under
+   "nothing" (no checkpoint), with the same launches a step (under both
+   policies the attention forward and the scan run again in the backward:
+   PERF.md's derivation), step ms, tokens/s and peak memory.
 12. Execution over a mesh, one process over a 1x1 ``DeviceMesh`` on a
    one-rank NCCL group.  (a) Right after step 6's continuous serving,
    yi-6b at full size through ``Engine(mesh=1x1, param_specs=...)`` on the
@@ -318,6 +343,12 @@ SSD_LONG = ("long-prompt", 64, 256, 64, 128)
 MODEL_LAYERS = 2           # the model check's depth cut
 SSM_MODEL_LENGTHS = (600, 97)  # prompt bytes: 601 tokens span 3 chunks of 256
 MODEL_ATOL = MODEL_RTOL = 1e-3  # float32 logits, card vs CPU, 2 layers
+CHUNKED_MAX_LEN = 16_384   # the long-context cache of the DECODE_CHUNKED reading
+# chunked decode attention rounds its probabilities to bf16 once, as the
+# one-pass path does, so its error against float32 is of the same size:
+# at most twice the one-pass path's on the same step
+CHUNKED_ERR_RATIO = 2.0
+HYBRID = "jamba-1.5-large-398b"  # its smoke config: no hybrid config fits one card
 SERVE_LENGTHS = (17, 64, 160, 384, 768, 1152, 1600, 2047)  # prompt bytes
 SERVE_NEW_TOKENS = 32
 SERVE_MAX_LEN = 4096
@@ -1072,7 +1103,13 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
           f"{launches} ({per_prefill} per prefill"
           f"{f', {tc_launches} on the tensor-core route' if routed else ''})"
           f"{extra}; tokens identical over 2 runs; {secs:.1f} s", flush=True)
-    profile_generate(engine, prompts, card, arch)
+    profile_generate(engine, prompts, card, f"{arch} graph")
+    before = wrapper.launches
+    static_alternation(arch, engine, prompts, card)
+    alt = wrapper.launches - before
+    if alt != 4 * per_prefill + per_prefill:   # 4 runs and the eager profile
+        fail(f"{arch} alternation: {alt} {name} launches in 5 generate calls, want "
+             f"{5 * per_prefill} ({per_prefill} per prefill, none in decode)")
     del out
     torch.cuda.empty_cache()
     return launches, engine, runs
@@ -1197,6 +1234,169 @@ def profile_generate(engine, prompts, card: str, arch: str) -> None:
     ``Engine.decode`` spans (see :func:`profile_spans`)."""
     profile_spans(lambda: engine.generate(prompts),
                   ("Engine.prefill", "Engine.decode"), card, arch)
+
+
+class StepClock:
+    """CUDA events before and after every decode step while it is entered:
+    each eager ``Engine._step`` and each CUDA graph replay (of either
+    engine).  ``stats()`` gives the inter-token latency (the device time
+    between the ends of consecutive steps) at p50 and p99, and the card's
+    busy share over the steps' span: the time inside the steps over the time
+    from the first step's start to the last one's end.  For a replay the
+    time inside is the graph's own; an eager step's includes the card's
+    waits for the host, so its share is not a busy share (the profiler
+    gives that)."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __enter__(self):
+        from repro_torch.serve.engine import Engine
+
+        self._saved = (Engine._step, torch.cuda.CUDAGraph.replay)
+        marks = self.marks
+
+        def timed(fn):
+            def call(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                marks.append((start, end))
+                return out
+            return call
+
+        Engine._step = timed(self._saved[0])
+        torch.cuda.CUDAGraph.replay = timed(self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve.engine import Engine
+
+        Engine._step, torch.cuda.CUDAGraph.replay = self._saved
+
+    def stats(self) -> dict:
+        torch.cuda.synchronize()
+        m = self.marks
+        if len(m) < 2:
+            return {"steps": len(m), "itl_p50": float("nan"), "itl_p99": float("nan"),
+                    "busy": float("nan")}
+        itl = [a[1].elapsed_time(b[1]) for a, b in zip(m, m[1:])]
+        inside = sum(a.elapsed_time(b) for a, b in m)
+        span = m[0][0].elapsed_time(m[-1][1])
+        return {"steps": len(m), "itl_p50": float(np.percentile(itl, 50)),
+                "itl_p99": float(np.percentile(itl, 99)), "busy": inside / span}
+
+
+def decode_alternation(label: str, engines: dict, run, card: str) -> dict:
+    """The same weights through an eager engine and a graph engine, in
+    turns: eager, graph, eager, graph (one process's runs differ by more
+    than 10%, so only turns compare).  ``run(engine)`` serves the prompts
+    and returns ``(results, seconds, tokens, what the seconds cover, ITL)``,
+    the ITL a ``(p50, p99, source)`` or None for :class:`StepClock`'s.
+    Tokens must be identical over all four runs.  Prints, per run, tokens/s
+    (host clock), ITL p50/p99, the busy share (:class:`StepClock`), capture
+    ms, replays and the run's own peak.  Returns each mode's rates."""
+    tokens, rates = {}, {"eager": [], "graph": []}
+    for mode in ("eager", "graph", "eager", "graph"):
+        eng = engines[mode]
+        caps, reps = eng.captures, eng.replays
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with StepClock() as clock:
+            results, secs, n_tokens, what, itl = run(eng)
+        peak = torch.cuda.max_memory_allocated() - base
+        st = clock.stats()
+        if itl is None:
+            itl = (st["itl_p50"], st["itl_p99"],
+                   f"over {st['steps']} steps, CUDA events at each step's end")
+        toks = [r.token_ids for r in results]
+        if tokens.setdefault(mode, toks) != toks:
+            fail(f"decode[{label}]: the {mode} engine's two runs gave different tokens")
+        rate = n_tokens / secs
+        rates[mode].append(rate)
+        cap = (f"captured {eng.captures - caps} in {eng.capture_s * 1e3:.1f} ms"
+               if eng.captures > caps else "no capture")
+        if mode == "graph":
+            busy = (f"busy {st['busy']:.3f} of the replays' span (CUDA events around "
+                    "each replay)")
+        else:
+            busy = ("busy share: see the profiler line (an eager step's CUDA events "
+                    "include the card's waits for the host)")
+        print(f"decode[{label}] {mode}: {n_tokens} tokens in {secs * 1e3:.3f} ms "
+              f"of {what} = {rate:.1f} tokens/s (host clock); ITL p50 {itl[0]:.3f} / "
+              f"p99 {itl[1]:.3f} ms ({itl[2]}); {busy}; {cap}; replays "
+              f"{eng.replays - reps}; own peak {peak}; card: {card}", flush=True)
+    if tokens["graph"] != tokens["eager"]:
+        diff = sum(a != b for ra, rb in zip(tokens["graph"], tokens["eager"])
+                   for a, b in zip(ra, rb))
+        fail(f"decode[{label}]: graph tokens differ from eager tokens ({diff} tokens)")
+    e, g = np.mean(rates["eager"]), np.mean(rates["graph"])
+    print(f"decode[{label}]: graph tokens identical to eager over 2 + 2 alternated "
+          f"runs; decode {g:.1f} against {e:.1f} tokens/s = {g / e:.2f}x; card: "
+          f"{card}", flush=True)
+    return rates
+
+
+def static_alternation(label: str, graph_engine, prompts, card: str) -> dict:
+    """:func:`decode_alternation` of the static ``Engine``: ``graph_engine``
+    (whose capture of this key may already exist) against an eager engine
+    on its model and config."""
+    from repro_torch.serve.engine import Engine
+
+    if graph_engine.decode != "graph":
+        fail(f"decode[{label}]: the served engine decodes {graph_engine.decode!r}, "
+             "not through a CUDA graph")
+    eager = Engine(graph_engine.cfg, graph_engine.model, graph_engine.scfg,
+                   device="cuda", decode="eager")
+
+    def run(eng):
+        out = eng.generate(prompts)
+        return out, out[0].decode_s, len(out) * out[0].steps, "decode", None
+
+    rates = decode_alternation(label, {"eager": eager, "graph": graph_engine}, run, card)
+    profile_generate(eager, prompts, card, f"{label} eager")
+    del eager
+    return rates
+
+
+def continuous_alternation(label: str, cfg, model, prompts, card: str) -> dict:
+    """:func:`decode_alternation` of greedy ``ContinuousEngine``s on one
+    model: an eager one and a graph one, each with its own pool and the
+    prefix cache off (a suffix prefill would change bf16 rounding), the
+    ``CONT_SLOTS`` prompts at once, so every lane decodes.  ITL from the
+    engine's own windows (host clock)."""
+    from repro_torch.launch.serve import paged_spec
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import ContinuousEngine
+
+    spec = paged_spec(CONT_MAX_LEN, CONT_BLOCK, CONT_SLOTS, prefix_cache=False)
+    scfg = ServeConfig(max_new_tokens=SERVE_NEW_TOKENS, max_len=spec.max_len)
+    engines = {m: ContinuousEngine(cfg, model, spec, scfg, prefix_cache=False,
+                                   device="cuda", decode=m)
+               for m in ("eager", "graph")}
+
+    def run(eng):
+        eng.reset_slo()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts)
+        wall = time.perf_counter() - t0
+        slo = eng.slo_ms()
+        return (out, wall, sum(len(r.token_ids) for r in out),
+                "the workload (prefills included)",
+                (slo["itl_p50_ms"], slo["itl_p99_ms"], "the engine's ITL window"))
+
+    rates = decode_alternation(label, engines, run, card)
+    profile_spans(lambda: engines["eager"].generate(prompts),
+                  ("ContinuousEngine.prefill", "ContinuousEngine.decode"), card,
+                  f"{label} eager")
+    for m, eng in engines.items():
+        drain_and_check(eng, f"{label} {m}")
+    del engines
+    torch.cuda.empty_cache()
+    return rates
 
 
 def profile_spans(run, names, card: str, label: str) -> None:
@@ -1388,6 +1588,98 @@ PARITY_NEW_TOKENS = 16
 MOE_NEAR_TIE = 1e-6        # router probabilities this close may swap experts
 
 
+def first_decode_logits(api, model, batch, max_len: int) -> torch.Tensor:
+    """Logits (float32) of the first decode step after a prefill of
+    ``batch`` into a ``max_len`` cache, fed the prefill's greedy tokens."""
+    with torch.no_grad():
+        logits, cache = api.prefill(model, batch, max_len=max_len)
+        cur = torch.argmax(logits, dim=-1)[:, None]
+        return api.decode_step(model, cur, batch["lengths"], cache)[0].float()
+
+
+def chunked_decode_reading(engine, prompts, card: str) -> None:
+    """yi-6b's served model at ``max_len`` ``CHUNKED_MAX_LEN``, the decode
+    attention one-pass (``flags.DECODE_CHUNKED`` off) and chunked (on).
+    Accuracy: the first decode step's bf16 logits both ways against the
+    same step in float32 (the served weights upcast, TF32 off, a cache of
+    ``CONT_MAX_LEN`` rows, which masks the same keys); the chunked path's
+    error may be at most ``CHUNKED_ERR_RATIO`` times the one-pass path's,
+    each path rounding its probabilities to bf16 once.  Rate: one graph
+    engine decodes the prompts off, on, off, on (one capture per setting:
+    the flag is part of the key), decode tokens/s and the tokens the two
+    settings share printed."""
+    import copy
+    import dataclasses
+
+    from repro_torch import flags
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg, model, api = engine.cfg, engine.model, engine.api
+    scfg = ServeConfig(max_new_tokens=SERVE_NEW_TOKENS, max_len=CHUNKED_MAX_LEN)
+    graph = Engine(cfg, model, scfg, device="cuda")
+    batch, _ = graph.inputs(prompts)
+    saved = flags.DECODE_CHUNKED
+    try:
+        first = {}
+        for on in (False, True):
+            flags.DECODE_CHUNKED = on
+            first[on] = first_decode_logits(api, model, batch, CHUNKED_MAX_LEN)
+        flags.DECODE_CHUNKED = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = copy.deepcopy(model).float()
+        ref = first_decode_logits(build_model(cfg32), model32, batch, CONT_MAX_LEN)
+        del model32
+        torch.cuda.empty_cache()
+        rates, toks = {False: [], True: []}, {}
+        for on in (False, True, False, True):
+            flags.DECODE_CHUNKED = on
+            out = graph.generate(prompts)
+            rates[on].append(len(out) * out[0].steps / out[0].decode_s)
+            toks[on] = [r.token_ids for r in out]
+    finally:
+        flags.DECODE_CHUNKED = saved
+    err = {on: float((first[on] - ref).abs().max()) for on in (False, True)}
+    diff = float((first[True] - first[False]).abs().max())
+    same = sum(a == b for x, y in zip(toks[False], toks[True]) for a, b in zip(x, y))
+    total = sum(len(x) for x in toks[False])
+    print(f"decode_chunked[yi-6b]: max_len {CHUNKED_MAX_LEN}, B={len(prompts)}, graph "
+          f"decode (captures {graph.captures}): one-pass "
+          f"{', '.join(f'{r:.1f}' for r in rates[False])} tokens/s, chunked (2,048-row "
+          f"chunks) {', '.join(f'{r:.1f}' for r in rates[True])} tokens/s (host "
+          f"clock); first decode step's bf16 logits against float32 (|logit| max "
+          f"{float(ref.abs().max()):.4g}): one-pass max_abs_err={err[False]:.6g}, "
+          f"chunked {err[True]:.6g} (at most {CHUNKED_ERR_RATIO} x one-pass's), "
+          f"chunked vs one-pass {diff:.6g}; tokens shared {same} of {total} (no "
+          f"gate: bf16 near-ties); card: {card}", flush=True)
+    if graph.captures != 2:
+        fail(f"decode_chunked: {graph.captures} captures, want one per setting")
+    if not err[True] <= CHUNKED_ERR_RATIO * err[False]:
+        fail(f"decode_chunked: chunked bf16 logits {err[True]} off float32, one-pass "
+             f"{err[False]}")
+    del graph
+    torch.cuda.empty_cache()
+
+
+def hybrid_alternation(work: Path, seed: int, card: str) -> None:
+    """jamba's smoke config (attention, Mamba and MoE layers) drawn on the
+    card from ``seed``, the 8 serving prompts: :func:`static_alternation`."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = get_config(HYBRID).smoke()
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                                  "cuda")
+    graph = Engine(cfg, model, ServeConfig(max_new_tokens=SERVE_NEW_TOKENS,
+                                           max_len=SERVE_MAX_LEN), device="cuda")
+    static_alternation(f"{HYBRID} smoke", graph, corpus_prompts(work, SERVE_LENGTHS),
+                       card)
+    del graph, model
+    torch.cuda.empty_cache()
+
+
 def reuse_prompts(work: Path, prompts) -> list:
     """The ``REUSE`` prompts: BOS plus the first ``prefix - 1`` bytes of a
     long corpus prompt (``prefix`` tokens, block-aligned), then a suffix cut
@@ -1560,10 +1852,14 @@ def continuous_serving_phase(work: Path, engine, static_tokens, card: str) -> in
              "tensor-core route")
     profile_spans(lambda: eng.generate(prompts),
                   ("ContinuousEngine.prefill", "ContinuousEngine.decode"), card,
-                  "yi-6b continuous")
+                  "yi-6b continuous graph")
+    if eng.decode != "graph" or eng.replays != eng.stats.steps:
+        fail(f"continuous yi-6b: decode {eng.decode!r}, {eng.replays} replays for "
+             f"{eng.stats.steps} steps: the greedy step did not replay a CUDA graph")
     drain_and_check(eng, "continuous[yi-6b]")
     del eng
     torch.cuda.empty_cache()
+    continuous_alternation("yi-6b continuous", cfg, model, prompts, card)
     return launches
 
 
@@ -1847,6 +2143,7 @@ CRASH_ARCH = "jamba-1.5-large-398b"  # smoke: both kernels and the MoE on one pa
 TRAIN_SEQ, TRAIN_BATCH = 2048, 4
 # the full-size runs: (arch, layers or None for the full depth, steps)
 FULL_TRAIN = (("mamba2-1.3b", None, 5), ("yi-6b", 4, 3))
+NOTHING_STEPS = 3          # the same state's steps under the "nothing" policy
 
 
 def ssd_scan_backward_case(seed: int):
@@ -2237,9 +2534,56 @@ def full_training_phase(work: Path, arch: str, layers, steps: int, card: str,
           f"card: {card}", flush=True)
     shutil.rmtree(tr.ckpt.root)
     prof = profile_train_step(tr, state, steps, card, arch)
+    nothing = nothing_policy_steps(tr, state, steps + 1, arch, counts, want, card)
+    print(f"train[{arch}] remat policies: \"names\" step_ms {step_ms:.3f} "
+          f"peak_allocated {peak}; \"nothing\" step_ms {nothing['step_ms']:.3f} "
+          f"peak_allocated {nothing['peak']}; nothing / names = "
+          f"{nothing['step_ms'] / step_ms:.4f}; card: {card}", flush=True)
     del out, tr, state, model
     torch.cuda.empty_cache()
-    return dict(launches=per_step, steps=steps, step_ms=step_ms, prof=prof)
+    return dict(launches=per_step + nothing["launches"], steps=steps,
+                step_ms=step_ms, prof=prof, nothing_ms=nothing["step_ms"])
+
+
+def nothing_policy_steps(tr, state, start: int, arch: str, counts, want: dict,
+                         card: str) -> dict:
+    """``NOTHING_STEPS`` more steps of the trained state under the remat
+    policy "nothing" (each layer recomputed whole), no checkpoint: step ms
+    (host clock around the step and its loss read-back), tokens/s, peak
+    bytes and the kernels' launches a step, which the derivation in
+    PERF.md puts equal to "names"'s (``want``)."""
+    from repro_torch import flags
+
+    saved = flags.REMAT_POLICY
+    flags.REMAT_POLICY = "nothing"
+    dts, per = [], []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(NOTHING_STEPS):
+            before = counts()
+            batch = tr.batch(start + i)
+            t0 = time.perf_counter()
+            state, metrics = tr._step_fn(state, batch)
+            loss = float(metrics["loss"])
+            dts.append(time.perf_counter() - t0)
+            per.append({k: v - before[k] for k, v in counts().items()})
+            if not np.isfinite(loss):
+                fail(f"train[{arch}] \"nothing\" step {i}: loss {loss} not finite")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        flags.REMAT_POLICY = saved
+    for i, got in enumerate(per):
+        for k, n in want.items():
+            if got[k] != n:
+                fail(f"train[{arch}] \"nothing\" step {i}: {got[k]} {k} launches, "
+                     f"want {n}")
+    step_ms = float(np.median(dts)) * 1e3
+    print(f"train[{arch}] remat \"nothing\": {NOTHING_STEPS} steps, no checkpoint, "
+          f"step_ms {', '.join(f'{d * 1e3:.3f}' for d in dts)} (median {step_ms:.3f}) = "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s; peak_allocated "
+          f"{peak}; launches per step {json.dumps(per[-1])}; card: {card}", flush=True)
+    return dict(step_ms=step_ms, peak=peak, launches=per)
 
 
 # ---------------------------------------------------------------------------
@@ -2571,6 +2915,7 @@ def main() -> None:
         model_phase(Path(work), args.seed, checks["dense"], lm_wrappers)
         fa_static, engine, static_runs = lm_serving_phase(
             Path(work), args.seed, "yi-6b", flash_attention_cuda, card)
+        chunked_decode_reading(engine, corpus_prompts(Path(work), SERVE_LENGTHS), card)
         fa_cont = continuous_serving_phase(Path(work), engine,
                                            static_runs[0]["token_ids"], card)
         mesh = one_card_mesh()
@@ -2589,6 +2934,7 @@ def main() -> None:
             Path(work), args.seed, "mamba2-1.3b", ssd_scan_cuda, card)
         del engine
         torch.cuda.empty_cache()
+        hybrid_alternation(Path(work), args.seed, card)
         print(f"SSM phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         encdec_model_check(Path(work), args.seed)

@@ -66,8 +66,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.sorted_probe.ops import sorted_probe
-from ..kernels.tanimoto.ops import tanimoto_topk
-from ..kernels.tanimoto.ref import tanimoto_topk_ref
+from ..kernels.tanimoto.ops import tanimoto_topk, tanimoto_topk_host
 from .bloom import BloomFilter
 from .fingerprint import (
     DEFAULT_FP_BITS,
@@ -977,7 +976,8 @@ class IndexStore:
         ``probe="device"`` scans the shard's plane on the store's device
         with ``tanimoto_topk`` (the CUDA kernel on a CUDA store, its plain
         version on a CPU store; ``queries`` is the batch already there);
-        ``"host"`` runs the plain version on the CPU over the mmap'd plane.
+        ``"host"`` runs the cache-blocked ``tanimoto_topk_host`` on the CPU
+        over the mmap'd plane, as the reference does.
         """
         qn = fps.shape[0]
         count = int(self.manifest["shards"][s]["count"])
@@ -993,15 +993,11 @@ class IndexStore:
             db, dc = self._fp_table(s)
             q, qc = queries or self._query_tensors(fps, q_counts)
             scores, rows = tanimoto_topk(q, db, k, q_counts=qc, db_counts=dc)
+            scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
         else:
             db, dc = self._fp_shard(s)
-            scores, rows = tanimoto_topk_ref(
-                torch.from_numpy(fps), _host_tensor(db), k,
-                q_counts=torch.from_numpy(
-                    np.ascontiguousarray(q_counts, dtype=np.int32)),
-                db_counts=_host_tensor(dc),
-            )
-        scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
+            scores, rows = tanimoto_topk_host(fps, db, k, q_counts=q_counts,
+                                              db_counts=dc)
         shard = self._shard(s)
         valid = rows >= 0
         r = np.where(valid, rows, 0)
@@ -1054,7 +1050,7 @@ class IndexStore:
         offset asc)``, padded with ``-1`` columns when the corpus holds
         fewer than ``k`` rows.  ``probe`` selects the scoring backend like
         :meth:`lookup_batch`: ``"device"`` (``tanimoto_topk`` on the
-        store's device), ``"host"`` (the plain version on the CPU —
+        store's device), ``"host"`` (``tanimoto_topk_host`` on the CPU —
         byte-identical), or ``None``/"auto" (``"device"`` on a CUDA
         store, else ``"host"``).  Thread-safe like ``lookup_batch``.
         """

@@ -1,8 +1,9 @@
-"""Run-time knobs of the read engine, and the residual layout under a mesh.
+"""Run-time knobs of the read engine, the residual layout under a mesh,
+chunked decode attention and the training remat policy.
 
-Read dynamically, not at import: tests and launchers flip them per run.
-The environment variable names are the reference package's, so one
-setting drives both packages.
+The read-engine knobs are read dynamically, not at import: tests and
+launchers flip them per run.  The environment variable names are the
+reference package's, so one setting drives both packages.
 
 ``REPRO_READER_BACKEND`` — span I/O backend for core.reader:
     "auto"   — io_uring when the kernel supports it, else "thread"
@@ -44,6 +45,32 @@ def verify_backend() -> str:
 # keeps the residual's sequence whole.  Read once, at import, as the
 # reference reads it.
 SP_OUTPUTS = os.environ.get("REPRO_SP_OUTPUTS", "1") == "1"
+
+
+# Chunked decode attention (``models.common.decode_attention_chunked``, an
+# online softmax over KV chunks) in place of the one-pass grouped products.
+# Off by default, as in the reference.  Read once, at import; the decode
+# paths read this attribute at call time, so a caller may flip it.
+DECODE_CHUNKED = os.environ.get("REPRO_DECODE_CHUNKED", "0") == "1"
+
+# Remat policy of the layer stacks while gradients are recorded
+# (``models.common.remat_layer``), read at import; the layers read this
+# attribute at call time:
+#   "names"   - keep the attention, FFN and mixer outputs: each sublayer is
+#               recomputed on its own, so the backward pass does not re-run
+#               the matmul that ends a sublayer (the default, as in the
+#               reference);
+#   "nothing" - recompute each whole layer (the framework baseline).
+REMAT_POLICY = os.environ.get("REPRO_REMAT_POLICY", "names")
+
+
+def remat_policy():
+    """The names of the sublayer outputs that the backward pass keeps:
+    ``("attn_out", "ffn_out", "mixer_out")`` under "names", none under any
+    other policy (the reference's ``nothing_saveable``)."""
+    if REMAT_POLICY == "names":
+        return ("attn_out", "ffn_out", "mixer_out")
+    return ()
 
 
 def residual_axes():

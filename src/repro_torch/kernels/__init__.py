@@ -23,7 +23,7 @@ ops) and ``ssd_scan/ops.py`` the scan's (backward by the same kernel).
 """
 
 from .flash_attention.ops import flash_attention
-from .hash_mix.ops import hash_mix
+from .hash_mix.ops import hash_mix, hash_mix_u64
 from .sorted_probe.ops import sorted_probe
 from .ssd_scan.ops import ssd_scan
 from .tanimoto.ops import tanimoto_topk

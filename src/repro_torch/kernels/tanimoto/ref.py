@@ -34,6 +34,7 @@ __all__ = [
     "PAD_SCORE",
     "row_counts",
     "tanimoto_scores_ref",
+    "tanimoto_topk_naive",
     "tanimoto_topk_ref",
 ]
 
@@ -169,3 +170,18 @@ def tanimoto_topk_ref(
     rows = torch.where(pad, torch.full_like(run_i, PAD_INDEX), run_i)
     scores = torch.where(pad, torch.full_like(run_s, PAD_SCORE), run_s)
     return scores, rows.to(torch.int32)
+
+
+def tanimoto_topk_naive(
+    q_fps: torch.Tensor, db_fps: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query loop baseline: one independent scoring pass per query,
+    popcounts recomputed every call (the pre-batching serving contract);
+    the same results as :func:`tanimoto_topk_ref`."""
+    outs = [tanimoto_topk_ref(q_fps[i:i + 1], db_fps, k)
+            for i in range(q_fps.shape[0])]
+    if not outs:
+        w = torch.zeros((0, k), dtype=torch.float32, device=q_fps.device)
+        return w, w.to(torch.int32)
+    return (torch.cat([s for s, _ in outs], dim=0),
+            torch.cat([i for _, i in outs], dim=0))

@@ -15,16 +15,21 @@ Conventions
   Every use goes through :func:`cast`, a no-op for the first and the
   reference's differentiable cast for the second.  Norm weights stay
   float32, as ``rmsnorm`` reads them.
-* Training recomputes each block in the backward pass (:func:`remat`, the
-  counterpart of the reference's ``jax.checkpoint`` of its layer scan),
-  and :func:`chunked_xent` each logits chunk.
+* Training recomputes activations in the backward pass under the remat
+  policy (``flags.REMAT_POLICY``, the counterpart of the reference's
+  ``jax.checkpoint`` of its layer scan): under "names", the default, each
+  sublayer on its own (:func:`remat_sublayer`), under "nothing" each whole
+  layer (:func:`remat_layer`); :func:`chunked_xent` recomputes each logits
+  chunk under either.
 * Full-sequence attention goes through ``flash_attention`` (the CUDA kernel
   for a CUDA tensor, the plain version on the CPU).  One-token decode is
   the reference's default unchunked path: a grouped product with float32
-  accumulation and a float32 result, masked softmax, product with V.  It
-  updates the cache in place (``index_put_`` at each row's slot, on each
-  rank's local block under a mesh: :func:`write_slots`), where the
-  reference rebuilds it functionally and donates the old one.
+  accumulation and a float32 result, masked softmax, product with V; with
+  ``flags.DECODE_CHUNKED`` set, :func:`decode_attention_chunked`, an
+  online softmax over KV chunks.  It updates the cache in place
+  (``index_put_`` at each row's slot, on each rank's local block under a
+  mesh: :func:`write_slots`), where the reference rebuilds it
+  functionally and donates the old one.
 * The paged cache (continuous batching) is one pool ``(Hkv, n_blocks *
   block_size, Dh)`` per layer shared by every batch slot through block
   tables; ``attention_decode_paged`` writes the new token's row into the
@@ -73,6 +78,7 @@ __all__ = [
     "cast",
     "chunked_xent",
     "compute_dtype",
+    "decode_attention_chunked",
     "dense_init",
     "embed_apply",
     "embed_init",
@@ -84,6 +90,8 @@ __all__ = [
     "paged_write_rows",
     "param_count",
     "remat",
+    "remat_layer",
+    "remat_sublayer",
     "rmsnorm",
     "rmsnorm_init",
     "rope_freqs",
@@ -118,12 +126,10 @@ def cast(t: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def remat(fn, *args):
     """``fn(*args)``; while gradients are recorded, its activations are not
     kept but recomputed in the backward pass (``torch.utils.checkpoint``,
-    non-reentrant).  The reference wraps its layer scan's body in
-    ``jax.checkpoint`` with a policy that saves the attention, FFN and mixer
-    outputs (``flags.remat_policy``, "names"); the port recomputes the
-    whole block, the reference's "nothing" policy.  The recomputation runs
-    under the forward's mesh and rules (``dist.logical.carry``), in
-    whichever thread autograd runs it."""
+    non-reentrant, which stops recomputing once the backward has every
+    tensor it needs: the matmul that ends ``fn`` does not run again).  The
+    recomputation runs under the forward's mesh and rules
+    (``dist.logical.carry``), in whichever thread autograd runs it."""
     if torch.is_grad_enabled():
         enter = carry()
 
@@ -132,6 +138,34 @@ def remat(fn, *args):
                 return fn(*a)
 
         return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def remat_layer(fn, *args):
+    """One layer of a stack, ``fn(*args)``, under the remat policy
+    (``flags.REMAT_POLICY``, read at each call).  "nothing": the whole
+    layer under :func:`remat`, so only its input is kept.  "names" (the
+    default): the layer runs as it is and each of its sublayers
+    (:func:`remat_sublayer`) recomputes on its own, so the residual stream
+    between sublayers, which holds the attention, FFN and mixer outputs, is
+    kept and the backward pass does not re-run the matmul that ends each
+    sublayer, as the reference's ``save_only_these_names`` policy keeps
+    ``attn_out``, ``ffn_out`` and ``mixer_out``.  Both give the same
+    gradients bit for bit: the autograd graph is the same, only what it
+    keeps differs."""
+    if flags.remat_policy():
+        return fn(*args)
+    return remat(fn, *args)
+
+
+def remat_sublayer(name: str, fn, *args):
+    """A sublayer of a layer run by :func:`remat_layer`: ``fn(*args)``
+    from the residual stream to the sublayer's output (its norm included),
+    under :func:`remat` when the policy keeps ``name`` (one of
+    ``flags.remat_policy()``), plain otherwise (the enclosing layer is
+    recomputed whole)."""
+    if name in flags.remat_policy():
+        return remat(fn, *args)
     return fn(*args)
 
 
@@ -355,22 +389,24 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_ctx(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`_decode_ctx_local`; under a mesh on each rank's local (batch,
-    kv heads) block (``local_map``): its grouped products reshape the
-    batch and head dims together, which DTensor cannot do across shards.
-    A cache whose sequence is sharded (the KV fallback) is gathered
-    whole first, where GSPMD would combine partial softmaxes."""
+                valid: Optional[torch.Tensor] = None,
+                chunked: bool = False) -> torch.Tensor:
+    """:func:`_decode_ctx_local` (``chunked``: :func:`_decode_ctx_chunked`);
+    under a mesh on each rank's local (batch, kv heads) block
+    (``local_map``): its grouped products reshape the batch and head dims
+    together, which DTensor cannot do across shards.  A cache whose
+    sequence is sharded (the KV fallback) is gathered whole first, where
+    GSPMD would combine partial softmaxes."""
+    local = _decode_ctx_chunked if chunked else _decode_ctx_local
     mesh = current_mesh()
     if mesh is None:
-        return _decode_ctx_local(q, k_cache, v_cache, valid)
+        return local(q, k_cache, v_cache, valid)
     pq = resolved_placements(("batch", "heads"), q.shape, mesh)
     pk = resolved_placements(("batch", "kv_heads"), k_cache.shape, mesh)
     if pq != pk:   # the query heads of a kv head must be local with it
         pq = pk = resolved_placements(("batch",), q.shape, mesh)
     pv = None if valid is None else resolved_placements(("batch",), valid.shape, mesh)
-    return on_local_blocks(_decode_ctx_local, (pq, pk, pk, pv), pq)(
-        q, k_cache, v_cache, valid)
+    return on_local_blocks(local, (pq, pk, pk, pv), pq)(q, k_cache, v_cache, valid)
 
 
 def _decode_ctx_local(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -386,6 +422,54 @@ def _decode_ctx_local(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Ten
         s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return _matmul_f32(p.to(v_cache.dtype), v_cache).reshape(b, h * dh)  # (B,Hkv,G,Dh)
+
+
+def _decode_ctx_chunked(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """:func:`decode_attention_chunked` as :func:`_decode_ctx_local` returns
+    its context: (B, H * Dh) float32."""
+    b, h, dh = q.shape
+    return decode_attention_chunked(q, k_cache, v_cache, valid).reshape(b, h * dh)
+
+
+def decode_attention_chunked(
+    q: torch.Tensor,         # (B, H, Dh)
+    k_cache: torch.Tensor,   # (B, Hkv, S, Dh)
+    v_cache: torch.Tensor,   # (B, Hkv, S, Dh)
+    valid: torch.Tensor,     # (B, S) bool
+    chunk: int = 2048,
+) -> torch.Tensor:
+    """One-token GQA attention over a cache, an online softmax over KV
+    chunks of ``chunk`` rows (the reference's ``decode_attention_chunked``)
+    → (B, H, Dh) float32.  An ``(m, l, acc)`` carry in float32 caps the
+    live scores at (B, H, chunk) where the one-pass path makes (B, H, S);
+    the last chunk is padded with masked rows.  Each chunk's products run
+    in the cache dtype with float32 sums, as the one-pass path's do."""
+    b, h, dh = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    c = min(chunk, s)
+    qg = (q / math.sqrt(dh)).reshape(b, hkv, g, dh).to(k_cache.dtype)
+    m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    for lo in range(0, s, c):
+        kb, vb = k_cache[:, :, lo:lo + c], v_cache[:, :, lo:lo + c]
+        vm = valid[:, lo:lo + c]
+        pad = c - vm.shape[1]
+        if pad:
+            kb, vb = F.pad(kb, (0, 0, 0, pad)), F.pad(vb, (0, 0, 0, pad))
+            vm = F.pad(vm, (0, pad))
+        vm = vm[:, None, None, :]
+        sc = torch.where(vm, _matmul_f32(qg, kb.transpose(2, 3)), NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None]) * vm
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + _matmul_f32(p.to(vb.dtype), vb)
+        m = m_new
+    l_safe = torch.where(l > 0, l, 1.0)
+    return (acc / l_safe[..., None]).reshape(b, h, dh)
 
 
 def write_slots(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
@@ -468,7 +552,7 @@ def attention_decode(
     else:
         # ring buffer: slot s holds token t = pos - ((pos - s) mod W)
         valid = pos[:, None] - (pos[:, None] - idx) % window >= 0
-    ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid)
+    ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid, chunked=flags.DECODE_CHUNKED)
     ctx = ctx.to(compute_dtype(cfg))
     return (ctx @ cast(attn.wo, cfg))[:, None, :], cache
 
@@ -543,7 +627,7 @@ def attention_decode_paged(
     k_cache = paged_view(k_pool, tables, block_size).contiguous()
     v_cache = paged_view(v_pool, tables, block_size).contiguous()
     valid = torch.arange(k_cache.shape[2], device=x.device)[None, :] <= pos[:, None]
-    ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid)
+    ctx = _decode_ctx(q[:, 0], k_cache, v_cache, valid, chunked=flags.DECODE_CHUNKED)
     ctx = ctx.to(compute_dtype(cfg))
     return (ctx @ cast(attn.wo, cfg))[:, None, :], cache
 

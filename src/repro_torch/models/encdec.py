@@ -15,8 +15,9 @@ Every full-sequence attention goes through ``flash_attention``: per layer
 pair one non-causal launch in the encoder, one causal (decoder self) and
 one non-causal (cross, ``Sq`` prompt rows against ``Skv`` = frames keys)
 in the decoder.  While gradients are recorded, ``encode`` and
-``encdec_forward`` recompute each block whole in the backward pass
-(``common.remat``).
+``encdec_forward`` recompute activations in the backward pass under the
+remat policy (``common.remat_layer``: by default each attention and MLP
+on its own, keeping their outputs).
 
 Serving: the cache keeps the reference's layout, ``{"self": {"k", "v"}}``
 ``(L, B, Hkv, max_len, Dh)`` and ``{"cross": {"k", "v"}}`` ``(L, B, Hkv,
@@ -60,7 +61,8 @@ from .common import (
     mlp_apply,
     mlp_init,
     pad_dim,
-    remat,
+    remat_layer,
+    remat_sublayer,
     rmsnorm_init,
     split_heads,
     tp_input,
@@ -147,44 +149,62 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator,
     return EncDec(cfg, embed, enc_pos, enc, norm(), dec, norm())
 
 
+def _enc_attn(layer: EncoderLayer, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    return attention_apply(layer.attn, cfg, layer.ln1(x), positions, causal=False,
+                           use_rope=False)
+
+
+def _mlp(mlp: SwiGLU, ln: RMSNorm, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return mlp_apply(mlp, cfg, ln(x))
+
+
 def _enc_layer(layer: EncoderLayer, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
-    x = x + attention_apply(layer.attn, cfg, layer.ln1(x), positions,
-                            causal=False, use_rope=False)
-    return x + mlp_apply(layer.mlp, cfg, layer.ln2(x))
+    x = x + remat_sublayer("attn_out", _enc_attn, layer, cfg, x, positions)
+    return x + remat_sublayer("ffn_out", _mlp, layer.mlp, layer.ln2, cfg, x)
 
 
 def encode(model: EncDec, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames (B, F, D), the stub frontend's embeddings → the encoder
     output (B, F, D) in the compute dtype.  Each block runs under
-    ``remat``."""
+    ``remat_layer``."""
     f = frames.shape[1]
     x = frames.to(compute_dtype(cfg)) + cast(model.enc_pos[:f], cfg)[None]
     positions = replicate(torch.arange(f, device=x.device)[None, :])
     for layer in model.enc_blocks:
         x = constrain(x, "batch", "seq_sp", None)
-        x = remat(_enc_layer, layer, cfg, x, positions)
+        x = remat_layer(_enc_layer, layer, cfg, x, positions)
     return model.enc_norm(x)
+
+
+def _dec_self(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    return attention_apply(layer.self, cfg, layer.ln1(x), positions, causal=True)
+
+
+def _dec_cross(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    return attention_apply(layer.cross, cfg, layer.ln2(x), positions, kv_from=enc_out)
 
 
 def _dec_layer(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
-    x = x + attention_apply(layer.self, cfg, layer.ln1(x), positions, causal=True)
-    x = x + attention_apply(layer.cross, cfg, layer.ln2(x), positions,
-                            kv_from=enc_out)
-    return x + mlp_apply(layer.mlp, cfg, layer.ln3(x))
+    x = x + remat_sublayer("attn_out", _dec_self, layer, cfg, x, positions)
+    x = x + remat_sublayer("attn_out", _dec_cross, layer, cfg, x, positions, enc_out)
+    return x + remat_sublayer("ffn_out", _mlp, layer.mlp, layer.ln3, cfg, x)
 
 
 def encdec_forward(model: EncDec, cfg: ModelConfig, frames: torch.Tensor,
                    tokens: torch.Tensor) -> torch.Tensor:
     """→ the decoder's final hidden states (B, S, D).  Each block runs
-    under ``remat``."""
+    under ``remat_layer``."""
     enc_out = encode(model, cfg, frames)
     x = embed_apply(model.embed, cfg, tokens)
     positions = replicate(torch.arange(x.shape[1], device=x.device)[None, :])
     for layer in model.dec_blocks:
         x = constrain(x, "batch", "seq_sp", None)
-        x = remat(_dec_layer, layer, cfg, x, positions, enc_out)
+        x = remat_layer(_dec_layer, layer, cfg, x, positions, enc_out)
     return constrain(model.final_norm(x), "batch", "seq", None)
 
 

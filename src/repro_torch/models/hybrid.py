@@ -15,7 +15,9 @@ position.  Prefill runs ``flash_attention`` once per super-block and
 ``ssd_scan`` once per Mamba position; MoE drops tokens over capacity in
 prefill and never in decode, as in the reference.  ``hybrid_loss`` is
 the training loss; while gradients are recorded, ``hybrid_forward``
-recomputes each layer in the backward pass (``common.remat``).
+recomputes activations in the backward pass under the remat policy
+(``common.remat_layer``: by default each layer's mixer and FFN on their
+own, keeping their outputs).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from .common import (
     mlp_apply,
     mlp_init,
     pad_dim,
-    remat,
+    remat_layer,
+    remat_sublayer,
     rmsnorm_init,
     unembed_logits,
 )
@@ -139,22 +142,27 @@ def _ffn(layer: HybridLayer, cfg: ModelConfig, x: torch.Tensor,
     return mlp_apply(layer.ffn, cfg, h), torch.zeros((), device=x.device)
 
 
+def _mixer_sublayer(layer: HybridLayer, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    h = layer.ln_mix(x)
+    if isinstance(layer.mixer, Attention):
+        return attention_apply(layer.mixer, cfg, h, positions, causal=True)
+    return mamba_apply(layer.mixer, cfg, h)
+
+
 def _layer_forward(layer: HybridLayer, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor):
     """One layer → (x, its FFN's aux loss)."""
-    h = layer.ln_mix(x)
-    if isinstance(layer.mixer, Attention):
-        x = x + attention_apply(layer.mixer, cfg, h, positions, causal=True)
-    else:
-        x = x + mamba_apply(layer.mixer, cfg, h)
-    y, a = _ffn(layer, cfg, x)
+    name = "attn_out" if isinstance(layer.mixer, Attention) else "mixer_out"
+    x = x + remat_sublayer(name, _mixer_sublayer, layer, cfg, x, positions)
+    y, a = remat_sublayer("ffn_out", _ffn, layer, cfg, x)
     return x + y, a
 
 
 def hybrid_forward(model: Hybrid, cfg: ModelConfig,
                    tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (hidden (B, S, D), summed MoE aux loss).  Each layer runs under
-    ``remat``."""
+    ``remat_layer``."""
     x = embed_apply(model.embed, cfg, tokens)
     positions = replicate(torch.arange(x.shape[1], device=x.device)[None, :])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -162,7 +170,7 @@ def hybrid_forward(model: Hybrid, cfg: ModelConfig,
     for i, layer in enumerate(model.layers):
         if i % per == 0:     # the reference's scan step: one hybrid block
             x = constrain(x, "batch", "seq_sp", None)
-        x, a = remat(_layer_forward, layer, cfg, x, positions)
+        x, a = remat_layer(_layer_forward, layer, cfg, x, positions)
         aux = aux + a
     return constrain(model.final_norm(x), "batch", "seq", None), aux
 

@@ -55,7 +55,7 @@ from ..configs.base import ModelConfig
 from ..dist.logical import current_mesh, current_rules, on_local_blocks, placements
 from .common import _param, cast, compute_dtype, dense_init
 
-__all__ = ["MoE", "Routed", "moe_apply", "moe_init", "monitor", "route"]
+__all__ = ["MoE", "Routed", "moe_apply", "moe_init", "monitor", "monitored", "route"]
 
 
 class Routed(NamedTuple):
@@ -91,6 +91,12 @@ def monitor(model: nn.Module) -> Iterator[List[Routed]]:
     finally:
         for m in layers:
             m.monitor = None
+
+
+def monitored(model: nn.Module) -> bool:
+    """Whether a :func:`monitor` block is recording ``model``'s MoE
+    layers."""
+    return any(m.monitor is not None for m in model.modules() if isinstance(m, MoE))
 
 
 def moe_init(cfg: ModelConfig, generator: torch.Generator) -> MoE:

@@ -10,9 +10,10 @@ The cache is a list with one ``{"ssm", "conv"}`` dict per layer:
 compute dtype (the reference stacks the same arrays per layer).  Decode
 needs no positions: the state is O(1) in the sequence length.
 ``ssm_loss`` is the training loss; while gradients are recorded,
-``ssm_forward`` recomputes each layer in the backward pass
-(``common.remat``), so a step runs ``ssd_scan`` three times a layer:
-forward, recompute and the scan's own backward.
+``ssm_forward`` recomputes each layer's mixer in the backward pass (under
+either remat policy, ``common.remat_layer``: the layer is its mixer), so a
+step runs ``ssd_scan`` three times a layer: forward, recompute and the
+scan's own backward.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from .common import (
     embed_apply,
     embed_init,
     last_token_logits,
-    remat,
+    remat_layer,
+    remat_sublayer,
     rmsnorm_init,
     unembed_logits,
 )
@@ -87,18 +89,22 @@ def init_ssm(cfg: ModelConfig, generator: torch.Generator,
                RMSNorm(rmsnorm_init(cfg.d_model, dev), cfg.norm_eps))
 
 
+def _mixer_sublayer(layer: SSMLayer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return mamba_apply(layer.mamba, cfg, layer.ln(x))
+
+
 def _layer_forward(layer: SSMLayer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + mamba_apply(layer.mamba, cfg, layer.ln(x))
+    return x + remat_sublayer("mixer_out", _mixer_sublayer, layer, cfg, x)
 
 
 def ssm_forward(model: SSM, cfg: ModelConfig,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (hidden (B, S, D), aux_loss scalar 0).  Each layer runs under
-    ``remat``."""
+    ``remat_layer``."""
     x = embed_apply(model.embed, cfg, tokens)
     for layer in model.layers:
         x = constrain(x, "batch", "seq_sp", None)
-        x = remat(_layer_forward, layer, cfg, x)
+        x = remat_layer(_layer_forward, layer, cfg, x)
     return (constrain(model.final_norm(x), "batch", "seq", None),
             torch.zeros((), dtype=torch.float32, device=x.device))
 

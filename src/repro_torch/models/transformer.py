@@ -15,7 +15,9 @@ Entry points: ``init_lm``, ``lm_forward``, ``lm_loss`` (next-token cross
 entropy plus the router's aux loss: training), ``lm_cache_init``,
 ``lm_prefill`` (forward + KV cache build) and ``lm_decode_step``
 (one-token serve).  While gradients are recorded, ``lm_forward``
-recomputes each layer in the backward pass (``common.remat``).  The
+recomputes activations in the backward pass under the remat policy
+(``common.remat_layer``: by default each layer's attention and FFN on
+their own, keeping their outputs).  The
 cache is a list with one ``{"k", "v"}`` dict per layer, each ``(B, Hkv,
 slots, Dh)``; the reference stacks the same arrays per scan position.
 
@@ -63,7 +65,8 @@ from .common import (
     pad_dim,
     paged_view,
     paged_write_rows,
-    remat,
+    remat_layer,
+    remat_sublayer,
     rmsnorm_init,
     unembed_logits,
 )
@@ -182,15 +185,25 @@ def _embed_inputs(model: LM, cfg: ModelConfig, tokens, extra_embeds):
     return x
 
 
-def _layer_forward(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor, window: Optional[int]):
-    """One layer → (x, its router aux loss, 0 without a router)."""
-    h = layer.ln1(x)
-    x = x + attention_apply(layer.attn, cfg, h, positions, causal=True,
-                            window=window)
+def _attn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    return attention_apply(layer.attn, cfg, layer.ln1(x), positions, causal=True,
+                           window=window)
+
+
+def _ffn_sublayer(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor):
     y, a = _ffn(layer, cfg, layer.ln2(x))
     if a is None:
         a = torch.zeros((), dtype=torch.float32, device=x.device)
+    return y, a
+
+
+def _layer_forward(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, window: Optional[int]):
+    """One layer → (x, its router aux loss, 0 without a router)."""
+    x = x + remat_sublayer("attn_out", _attn_sublayer, layer, cfg, x, positions,
+                           window)
+    y, a = remat_sublayer("ffn_out", _ffn_sublayer, layer, cfg, x)
     return x + y, a
 
 
@@ -201,7 +214,7 @@ def lm_forward(
     extra_embeds: Optional[torch.Tensor] = None,   # (B, I, D) VLM patch embeds
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (hidden (B, S, D), aux_loss scalar: the routers' summed over the
-    MoE layers, 0 without one).  Each layer runs under ``remat``."""
+    MoE layers, 0 without one).  Each layer runs under ``remat_layer``."""
     x = _embed_inputs(model, cfg, tokens, extra_embeds)
     positions = replicate(torch.arange(x.shape[1], device=x.device)[None, :])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -209,7 +222,7 @@ def lm_forward(
     for i, (layer, window) in enumerate(zip(model.layers, model.windows())):
         if i % per == 0:     # the reference's scan step: a block of `per` layers
             x = constrain(x, "batch", "seq_sp", None)
-        x, a = remat(_layer_forward, layer, cfg, x, positions, window)
+        x, a = remat_layer(_layer_forward, layer, cfg, x, positions, window)
         aux = aux + a
         if (i + 1) % per == 0:
             x = constrain(x, "batch", "seq_sp", None)

@@ -26,6 +26,29 @@ Greedy decoding takes the first maximal logit, as ``jnp.argmax`` does, so
 on float32 weights it gives the reference's tokens.  Sampling draws from
 the engine's ``torch.Generator``, seeded with ``ServeConfig.seed`` at every
 ``generate``; its draws are not ``jax.random``'s.
+
+How a decode step runs (``Engine(..., decode=)``), the counterpart of the
+reference's one jitted step with donated buffers:
+
+* ``"graph"`` (the default on a CUDA engine without a mesh): the step
+  (emit, EOS flags, ``api.decode_step``, the next token) is captured once
+  per capture key as one ``torch.cuda.CUDAGraph`` over static buffers
+  (:class:`_StaticDecode`) and replayed every step.  The key is the family,
+  B, ``max_len``, the token budget, greedy or sampled,
+  ``flags.DECODE_CHUNKED`` as read at capture, and the cache's shapes.
+  Each ``generate`` copies its prefill's cache into the static one (every
+  row, so nothing of an earlier request or of the warm-up survives); the
+  warm-up before a capture runs on a side stream over zeroed buffers.  A
+  sampled step registers the engine's generator with the graph, which
+  draws as the eager step does.  A capture that fails raises.
+* ``"static"``: the same static-buffer step, run op by op (what the graph
+  replays, checkable on the CPU).
+* ``"eager"`` (the default on the CPU and over a mesh): the step as
+  PyTorch ops on fresh tensors each step.  A step of a model under
+  ``models.moe.monitor`` runs eagerly whatever the mode (the monitor
+  appends Python records).
+
+``captures`` and ``replays`` count graph captures and replays.
 """
 
 from __future__ import annotations
@@ -36,7 +59,9 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
+from .. import flags
 from ..configs.base import ModelConfig
 from ..data.tokenizer import ByteTokenizer
 from ..device import DeviceLike, resolve_device
@@ -49,6 +74,7 @@ from ..launch.sharding import (
     redistribute_tree,
     shardings_from_specs,
 )
+from ..models.moe import monitored
 from ..models.registry import build_model
 from ..models.specs import cache_specs
 
@@ -82,6 +108,44 @@ class GenerationResult:
         return self.steps / self.decode_s if self.decode_s > 0 else float("inf")
 
 
+def _copy_into(dst, src) -> None:
+    """Copy every tensor of cache tree ``src`` into the same place of
+    ``dst`` (a tensor already ``dst``'s, written in place, is left)."""
+    for d, t in zip(tree_leaves(dst), tree_leaves(src)):
+        if d is not t:
+            d.copy_(t)
+
+
+class _StaticDecode:
+    """The buffers a captured decode step reads and writes, allocated once
+    per capture key: the cache, the current tokens ``cur (B, 1)``, the
+    positions ``pos (B,)``, the step index ``t (1,)``, the token buffer
+    ``out_buf (B, n_new)``, the emitted counts ``n_emit (B,)`` and the EOS
+    flags ``done (B,)``; ``graph`` once captured."""
+
+    def __init__(self, cache, b: int, n_new: int, pad_id: int):
+        self.cache = tree_map(torch.zeros_like, cache)
+        dev = tree_leaves(cache)[0].device
+        self.cur = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        self.pos = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.t = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.out_buf = torch.full((b, n_new), pad_id, dtype=torch.long, device=dev)
+        self.n_emit = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.pad_id = pad_id
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def start(self, cache, cur: torch.Tensor, pos: torch.Tensor) -> None:
+        """A new request batch: its prefill's cache and first tokens."""
+        _copy_into(self.cache, cache)
+        self.cur.copy_(cur)
+        self.pos.copy_(pos)
+        self.t.zero_()
+        self.out_buf.fill_(self.pad_id)
+        self.n_emit.zero_()
+        self.done.zero_()
+
+
 def _nbytes(tree) -> int:
     """Bytes of every tensor in a cache (whole tensors, summed over the
     ranks of a mesh): a list of per-layer dicts, or the encoder-decoder
@@ -94,15 +158,30 @@ def _nbytes(tree) -> int:
 class Engine:
     """Serves ``model`` (built by ``build_model(cfg).init`` or
     ``models.weights.params_from_reference``) on ``device``, where the
-    model's parameters must already be."""
+    model's parameters must already be.  ``decode`` picks how a decode step
+    runs (see the module notes): ``"graph"``, ``"static"`` or ``"eager"``;
+    None takes ``"graph"`` on a CUDA device without a mesh, else
+    ``"eager"``."""
 
     def __init__(self, cfg: ModelConfig, model: torch.nn.Module,
                  scfg: ServeConfig = ServeConfig(), device: DeviceLike = "cuda",
-                 mesh=None, param_specs: Optional[Mapping[str, Any]] = None):
+                 mesh=None, param_specs: Optional[Mapping[str, Any]] = None,
+                 decode: Optional[str] = None):
         self.cfg = cfg
         self.api = build_model(cfg)
         self.scfg = scfg
         self.device = resolve_device(device)
+        if decode is None:
+            decode = ("graph" if self.device.type == "cuda" and mesh is None
+                      else "eager")
+        if decode not in ("graph", "static", "eager"):
+            raise ValueError(f"decode={decode!r}: one of graph, static, eager")
+        if decode != "eager" and mesh is not None:
+            raise ValueError("a decode step over a mesh runs eagerly (DTensor "
+                             "dispatch): decode='eager'")
+        if decode == "graph" and self.device.type != "cuda":
+            raise ValueError(f"decode='graph' needs a CUDA engine, not {self.device}")
+        self.decode = decode
         for p in model.parameters():
             if p.device.type != self.device.type:
                 raise ValueError(
@@ -121,6 +200,10 @@ class Engine:
         # bytes of the KV cache that the last ``generate``'s prefill allocated
         # (the encoder-decoder family's cross cache included)
         self.kv_cache_bytes = 0
+        self._static: Dict[tuple, _StaticDecode] = {}
+        self.captures = 0          # CUDA graphs captured
+        self.replays = 0           # CUDA graph replays (decode steps)
+        self.capture_s = 0.0       # host seconds of the last capture, warm-up included
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -159,12 +242,64 @@ class Engine:
         n_emit += (~done).long()
         done |= cur[:, 0] == self.tok.eos_id
         logits, cache = self.api.decode_step(self.model, cur, pos, cache)
+        return self._next(logits)[:, None], pos + 1, cache
+
+    def _next(self, logits: torch.Tensor) -> torch.Tensor:
+        """The next token of each row (B,): the first maximal logit, or a
+        draw from the engine's generator."""
         if self.scfg.greedy:
-            nxt = torch.argmax(logits, dim=-1)
-        else:
-            probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-        return nxt[:, None], pos + 1, cache
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+
+    def _static_step(self, st: _StaticDecode) -> None:
+        """:meth:`_step` over the static buffers, every write in place: the
+        step that a CUDA graph captures."""
+        cur = st.cur[:, 0]
+        st.out_buf.index_copy_(1, st.t, torch.where(st.done, st.pad_id, cur)[:, None])
+        st.n_emit += (~st.done).long()
+        st.done |= cur == self.tok.eos_id
+        logits, cache = self.api.decode_step(self.model, st.cur, st.pos, st.cache)
+        _copy_into(st.cache, cache)
+        st.cur.copy_(self._next(logits)[:, None])
+        st.pos += 1
+        st.t += 1
+
+    def _static_for(self, cache, b: int, n_new: int) -> _StaticDecode:
+        """The static buffers (and, in graph mode, the captured step) of
+        this capture key, made at its first use."""
+        key = (self.cfg.family, b, self.scfg.max_len, n_new, self.scfg.greedy,
+               flags.DECODE_CHUNKED,
+               tuple((tuple(t.shape), t.dtype) for t in tree_leaves(cache)))
+        st = self._static.get(key)
+        if st is None:
+            st = _StaticDecode(cache, b, n_new, self.tok.pad_id)
+            if self.decode == "graph":
+                t0 = time.perf_counter()
+                st.graph = self._capture(st)
+                self.capture_s = time.perf_counter() - t0
+                self.captures += 1
+            self._static[key] = st
+        return st
+
+    def _capture(self, st: _StaticDecode) -> torch.cuda.CUDAGraph:
+        """Capture :meth:`_static_step` over ``st``'s zeroed buffers, after a
+        warm-up on a side stream (its writes are overwritten by the next
+        ``start``).  Raises if the step cannot be captured."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                st.t.zero_()
+                self._static_step(st)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        st.t.zero_()
+        graph = torch.cuda.CUDAGraph()
+        if not self.scfg.greedy:
+            graph.register_generator_state(self._gen)
+        with torch.cuda.graph(graph):
+            self._static_step(st)
+        return graph
 
     def inputs(self, texts: List[str]) -> Tuple[Dict[str, torch.Tensor], np.ndarray]:
         """The prefill batch of ``texts`` (laid out over the mesh, if any)
@@ -212,6 +347,14 @@ class Engine:
             n_emit = torch.zeros_like(cur[:, 0])
             done = torch.zeros_like(cur[:, 0], dtype=torch.bool)
 
+        st = None
+        if self.decode != "eager" and not monitored(self.model):
+            st = self._static_for(cache, b, n_new)
+            st.start(cache, cur, pos)
+            del cache
+            out_buf, n_emit, done = st.out_buf, st.n_emit, st.done
+            self._gen.manual_seed(self.scfg.seed)  # the warm-up drew from it
+
         t1 = time.perf_counter()
         steps = 0
         sync_every = max(1, self.scfg.sync_every)
@@ -219,9 +362,15 @@ class Engine:
             for step in range(n_new):
                 if step % sync_every == 0 and step and bool(whole(done).all()):
                     break
-                with use_mesh(self.mesh):
-                    cur, pos, cache = self._step(cur, pos, cache, out_buf, n_emit,
-                                                 done, step)
+                if st is None:
+                    with use_mesh(self.mesh):
+                        cur, pos, cache = self._step(cur, pos, cache, out_buf,
+                                                     n_emit, done, step)
+                elif st.graph is not None:
+                    st.graph.replay()
+                    self.replays += 1
+                else:
+                    self._static_step(st)
                 steps += 1
             self._sync()
         decode_s = time.perf_counter() - t1

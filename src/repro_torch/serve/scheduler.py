@@ -30,9 +30,21 @@ decouples a sequence's lifetime from the batch's:
   off for MoE (capacity drops depend on the prefill's batch shape) and
   VLM (image tokens offset every position), as in the reference.
 
-Where the reference jits its steps and donates the cache, the port calls
-the model eagerly and the paged functions update the pool tensors in
-place.
+Where the reference jits its steps and donates the cache, the paged
+functions update the pool tensors in place, and the greedy decode step
+(``decode_step_paged`` and the argmax over every lane) runs as the static
+engine's does (``ContinuousEngine(..., decode=)``): ``"graph"``, the
+default on a CUDA engine, captures it once per capture key (``max_slots``,
+the block-table width, ``flags.DECODE_CHUNKED``) as one
+``torch.cuda.CUDAGraph`` over static lane buffers (tokens, positions,
+block tables, next tokens) and replays it; ``"static"`` runs the same
+step op by op; ``"eager"`` uploads fresh tensors each step.  The host
+copies the lanes in before each step (the block tables only when they
+changed) and reads the ``(max_slots,)`` next tokens back after it; the
+emit/evict bookkeeping stays on the host.  The warm-up before a capture
+runs over zeroed lanes, whose writes land in the trash block.  The
+sampled path (``greedy=False``) stays eager: it draws from one generator
+per request token and reads each lane's draw back.
 
 Emission matches the static engine's greedy path: the first token is the
 argmax of the prefill logits at the true last prompt position, decode
@@ -63,6 +75,7 @@ from typing import Any, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import flags
 from ..configs.base import ModelConfig
 from ..data.tokenizer import ByteTokenizer
 from ..device import DeviceLike, resolve_device
@@ -156,6 +169,9 @@ class ContinuousEngine:
     Greedy by default; with ``greedy=False`` each request samples under
     its own generators (:func:`sample_seed`).  ``generate(texts)`` is a
     thin batch wrapper: enqueue all, lead once, gather in order.
+    ``decode`` picks how a greedy decode step runs (see the module notes):
+    ``"graph"``, ``"static"`` or ``"eager"``; None takes ``"graph"`` on a
+    greedy CUDA engine, else ``"eager"``.
     """
 
     def __init__(
@@ -167,6 +183,7 @@ class ContinuousEngine:
         prefix_cache: bool = True,
         device: DeviceLike = "cuda",
         mesh=None,
+        decode: Optional[str] = None,
     ):
         if mesh is not None:
             raise ValueError("the continuous engine serves on one device and "
@@ -186,6 +203,16 @@ class ContinuousEngine:
                     f"model parameters are on {p.device}, the engine on "
                     f"{self.device}"
                 )
+        if decode is None:
+            decode = ("graph" if self.device.type == "cuda" and scfg.greedy
+                      else "eager")
+        if decode not in ("graph", "static", "eager"):
+            raise ValueError(f"decode={decode!r}: one of graph, static, eager")
+        if decode != "eager" and not scfg.greedy:
+            raise ValueError("the sampled decode step runs eagerly: decode='eager'")
+        if decode == "graph" and self.device.type != "cuda":
+            raise ValueError(f"decode='graph' needs a CUDA engine, not {self.device}")
+        self.decode = decode
         self.model = model
         self.spec = spec
         self.scfg = scfg
@@ -219,6 +246,17 @@ class ContinuousEngine:
         self._free_slots: List[int] = list(range(spec.max_slots - 1, -1, -1))
         self._tables_dev = self._upload(self._mgr.tables)
         self._tables_dirty = False
+        # static lanes of the greedy step ("graph" and "static"), and the
+        # captured step and its key
+        lanes = spec.max_slots
+        self._lane_cur = torch.zeros((lanes, 1), dtype=torch.long, device=self.device)
+        self._lane_pos = torch.zeros((lanes,), dtype=torch.long, device=self.device)
+        self._lane_next = torch.zeros((lanes,), dtype=torch.long, device=self.device)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_key: Optional[tuple] = None
+        self.captures = 0          # CUDA graphs captured
+        self.replays = 0           # CUDA graph replays (decode steps)
+        self.capture_s = 0.0       # host seconds of the last capture, warm-up included
 
         self._lock = threading.Lock()      # queue, stop flag, SLO windows
         self._leader = threading.Lock()    # at most one decode loop
@@ -513,23 +551,75 @@ class ContinuousEngine:
             return int(torch.argmax(logits))
         return self._sample(logits, seed, 0)
 
+    def _lane_step(self) -> None:
+        """The greedy step over the static lanes, every write in place:
+        the step that a CUDA graph captures."""
+        logits, _ = self.api.decode_step_paged(
+            self.model, self._lane_cur, self._lane_pos, self._tables_dev,
+            self._cache, self.spec.block_size)
+        self._lane_next.copy_(torch.argmax(logits, dim=-1))
+
+    def _capture(self) -> None:
+        """Capture :meth:`_lane_step` over zeroed lanes (position 0 of block
+        0, the trash block), after a warm-up on a side stream.  Raises if
+        the step cannot be captured."""
+        t0 = time.perf_counter()
+        for lane in (self._lane_cur, self._lane_pos, self._tables_dev):
+            lane.zero_()
+        self._tables_dirty = True
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._lane_step()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # client threads only enqueue; the leader alone touches the device
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._lane_step()
+        self._graph = graph
+        self.capture_s = time.perf_counter() - t0
+        self.captures += 1
+
+    def _decode_lanes(self) -> np.ndarray:
+        """One greedy step over the static lanes → (S,) next tokens."""
+        key = (self.spec.max_slots, self._tables_dev.shape[1], flags.DECODE_CHUNKED)
+        if self.decode == "graph" and key != self._graph_key:
+            self._capture()
+            self._graph_key = key
+        if self._tables_dirty:
+            self._tables_dev.copy_(torch.from_numpy(self._mgr.tables))
+            self._tables_dirty = False
+        self._lane_cur.copy_(torch.from_numpy(self._cur))
+        self._lane_pos.copy_(torch.from_numpy(self._pos))
+        if self.decode == "graph":
+            self._graph.replay()
+            self.replays += 1
+        else:
+            self._lane_step()
+        return self._lane_next.cpu().numpy()  # the one host sync per step
+
     def _decode_once(self) -> None:
         """One batched paged decode step + host-side emit/evict."""
         with torch.profiler.record_function("ContinuousEngine.decode"):
-            if self._tables_dirty:
-                self._tables_dev = self._upload(self._mgr.tables)
-                self._tables_dirty = False
-            logits, self._cache = self.api.decode_step_paged(
-                self.model, self._upload(self._cur), self._upload(self._pos),
-                self._tables_dev, self._cache, self.spec.block_size,
-            )
-            if self.scfg.greedy:
-                # the one host sync per step: (S,) token ids
-                nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            if self.decode != "eager":
+                nxt = self._decode_lanes()
             else:
-                nxt = np.zeros((self.spec.max_slots,), np.int64)
-                for slot, seq in self._active.items():
-                    nxt[slot] = self._sample(logits[slot], seq.seed, len(seq.tokens))
+                if self._tables_dirty:
+                    self._tables_dev = self._upload(self._mgr.tables)
+                    self._tables_dirty = False
+                logits, self._cache = self.api.decode_step_paged(
+                    self.model, self._upload(self._cur), self._upload(self._pos),
+                    self._tables_dev, self._cache, self.spec.block_size,
+                )
+                if self.scfg.greedy:
+                    # the one host sync per step: (S,) token ids
+                    nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+                else:
+                    nxt = np.zeros((self.spec.max_slots,), np.int64)
+                    for slot, seq in self._active.items():
+                        nxt[slot] = self._sample(logits[slot], seq.seed,
+                                                 len(seq.tokens))
         now = time.perf_counter()
         self.stats.steps += 1
         for slot, seq in list(self._active.items()):

@@ -15,7 +15,9 @@ loss averaged, the metrics of the last microbatch), then the optional
 gradient compressor (:mod:`repro_torch.dist.compress`, one scale per
 reference leaf: a parameter stacked over its layers), then AdamW, which
 updates the parameters and moments in place.  The reference jits the same
-pure function; the port runs it eagerly.
+pure function; the port runs it eagerly.  ``make_serve_step`` returns
+``serve_step(model, token, pos, cache) -> (logits, cache)``, the model's
+one-token decode step.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..models.registry import ModelApi, build_model
 from ..models.weights import reference_layout
 from .optimizer import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["make_train_state", "make_train_step"]
+__all__ = ["make_serve_step", "make_train_state", "make_train_step"]
 
 
 def make_train_state(api: ModelApi, generator: torch.Generator,
@@ -94,3 +96,12 @@ def make_train_step(api: ModelApi, opt_cfg: AdamWConfig, grad_accum: int = 1,
         return new_state, {"loss": loss, **metrics, **info}
 
     return train_step
+
+
+def make_serve_step(api: ModelApi):
+    """Returns ``serve_step(model, token, pos, cache) -> (logits, cache)``."""
+
+    def serve_step(model, token, pos, cache):
+        return api.decode_step(model, token, pos, cache)
+
+    return serve_step

@@ -895,3 +895,72 @@ def test_scan_under_a_1x1_mesh_equals_the_kernel(cuda_mesh):
     assert ssd_scan_cuda.launches == before + 1
     for a, w in zip(got, want):
         assert torch.equal(a.full_tensor(), w)
+
+
+GRAPH_PROMPTS = (["InChI=1S/C12H22O2/", "C", "x" * 50, "InChI=1S/H2O/h1H2"],
+                 ["CC(=O)Oc1ccccc1C(=O)O", "N#N", "y" * 37, "InChI=1S/CH4/h1H4"])
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b", "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b", "whisper-small"])
+def test_decode_graph_tokens_equal_eager_on_the_card(cuda, arch):
+    """float32 smoke configs: the captured step replays the eager step's
+    tokens; a second ``generate`` at the same key replays the same graph,
+    a second batch size captures another."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg, _, model = _smoke_lm(cuda, arch)
+    scfg = ServeConfig(max_new_tokens=12, max_len=96, sync_every=4)
+    eager = Engine(cfg, model, scfg, device=cuda, decode="eager")
+    graph = Engine(cfg, model, scfg, device=cuda)
+    assert graph.decode == "graph"
+    steps = 0
+    for prompts in (*GRAPH_PROMPTS, GRAPH_PROMPTS[0][:2]):
+        got = graph.generate(prompts)
+        assert [r.token_ids for r in got] == [r.token_ids for r in eager.generate(prompts)]
+        steps += got[0].steps
+    assert graph.captures == 2 and graph.replays == steps
+    assert graph.capture_s > 0
+
+
+def test_decode_graph_sampled_tokens_equal_eager_on_the_card(cuda):
+    """The sampled step with the engine's generator registered with the
+    graph draws what the eager step draws for the same seed."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg, _, model = _smoke_lm(cuda)
+    scfg = ServeConfig(max_new_tokens=12, max_len=96, greedy=False, seed=3,
+                       temperature=0.9)
+    eager = Engine(cfg, model, scfg, device=cuda, decode="eager")
+    graph = Engine(cfg, model, scfg, device=cuda, decode="graph")
+    for prompts in GRAPH_PROMPTS:
+        assert ([r.token_ids for r in graph.generate(prompts)]
+                == [r.token_ids for r in eager.generate(prompts)])
+    assert graph.captures == 1 and graph.replays > 0
+
+
+def test_continuous_decode_graph_equals_eager_on_the_card(cuda):
+    """Greedy continuous serving through the captured lane step: the
+    eager paged step's tokens, through evictions and admissions (6 ragged
+    requests, 3 lanes)."""
+    from repro_torch.serve.kvcache import PagedCacheSpec
+    from repro_torch.serve.scheduler import ContinuousEngine
+    from repro_torch.serve.engine import ServeConfig
+
+    cfg, _, model = _smoke_lm(cuda)
+    spec = PagedCacheSpec(n_blocks=40, block_size=16, max_slots=3, max_blocks_per_seq=6)
+    texts = GRAPH_PROMPTS[0] + GRAPH_PROMPTS[1][:2]
+    budgets = [3, 12, 5, 8, 2, 9]
+    out = {}
+    for mode in ("eager", None):
+        eng = ContinuousEngine(cfg, model, spec, ServeConfig(max_new_tokens=12,
+                               max_len=96), device=cuda, decode=mode)
+        futs = [eng.submit(t, n, lead=False) for t, n in zip(texts, budgets)]
+        eng._maybe_lead()
+        out[mode] = [f.result(timeout=300).token_ids for f in futs]
+        if mode is None:
+            assert eng.decode == "graph" and eng.captures == 1
+            assert eng.replays == eng.stats.steps > 0
+        eng.close(drain=True)
+        eng.check()
+    assert out[None] == out["eager"]

@@ -2,7 +2,9 @@
 
 The plain ``tanimoto`` top-k against ``repro``'s ``tanimoto_topk_ref`` and
 its Pallas kernel in interpret mode (tie floods, W in {1, 2, 32}, k > N,
-empty inputs); ``merge_similar_topk`` against ``repro``'s; the port
+empty inputs); the host backends ``tanimoto_topk_host`` (NumPy) and
+``tanimoto_topk_naive`` against ``repro``'s on the same cases;
+``merge_similar_topk`` against ``repro``'s; the port
 store's ``similar_batch`` / ``similar_shard`` (host probe, and the device
 probe, which on a CPU store runs the plain version over the store's
 device tables) against ``repro``'s ``similar_batch(probe="host")`` on the
@@ -23,11 +25,17 @@ import repro.core as R
 import repro_torch.core as T
 from repro.core.store import merge_similar_topk as r_merge
 from repro.kernels.tanimoto.ops import tanimoto_topk as r_tanimoto_topk
+from repro.kernels.tanimoto.ops import tanimoto_topk_host as r_host
+from repro.kernels.tanimoto.ref import tanimoto_topk_naive as r_naive
 from repro.kernels.tanimoto.ref import tanimoto_topk_ref as r_ref
 from repro_torch.core.store import merge_similar_topk as t_merge
 from repro_torch.kernels.tanimoto.kernel import plan, tanimoto_topk_cuda
-from repro_torch.kernels.tanimoto.ops import tanimoto_topk
-from repro_torch.kernels.tanimoto.ref import row_counts, tanimoto_topk_ref
+from repro_torch.kernels.tanimoto.ops import tanimoto_topk, tanimoto_topk_host
+from repro_torch.kernels.tanimoto.ref import (
+    row_counts,
+    tanimoto_topk_naive,
+    tanimoto_topk_ref,
+)
 
 # repetitions of "ABC" share one trigram set: distinct keys, identical
 # fingerprints (the reference's tie flood)
@@ -106,6 +114,40 @@ def test_plain_matches_pallas_interpret(qn, n, w, k, distinct):
     db = _plane(rng, n, w, distinct)
     q = _queries(rng, db, qn, w)
     _same(_port(q, db, k), r_tanimoto_topk(q, db, k, interpret=True))
+
+
+@pytest.mark.parametrize("qn,n,w,k,distinct", CASES)
+def test_host_backends_match_reference(qn, n, w, k, distinct):
+    rng = np.random.default_rng(qn * 1000 + n + w + 2)
+    db = _plane(rng, n, w, distinct)
+    q = _queries(rng, db, qn, w)
+    want = r_host(q, db, k)
+    _same(want, r_ref(q, db, k))
+    got = tanimoto_topk_host(q, db, k)
+    _same(got, want)
+    # small chunks and tiles: argpartition's tie completion and the running
+    # merge across many blocks
+    _same(tanimoto_topk_host(q, db, k, db_chunk=64, tile=16),
+          r_host(q, db, k, db_chunk=64, tile=16))
+    s, i = tanimoto_topk_naive(torch.from_numpy(q), torch.from_numpy(db), k)
+    _same((s.numpy(), i.numpy()), r_naive(q, db, k))
+
+
+def test_host_backend_counts_and_empty_inputs_match_reference():
+    rng = np.random.default_rng(9)
+    db = _plane(rng, 300, 32, 12)
+    q = _queries(rng, db, 5, 32)
+    qc = np.bitwise_count(q).sum(axis=1, dtype=np.int32)
+    dc = np.bitwise_count(db).sum(axis=1, dtype=np.int32)
+    _same(tanimoto_topk_host(q, db, 7, q_counts=qc, db_counts=dc), r_host(q, db, 7))
+    for qn, n in [(0, 50), (3, 0)]:
+        q0 = rng.integers(0, 2**32, (qn, 2), dtype=np.uint32)
+        d0 = rng.integers(0, 2**32, (n, 2), dtype=np.uint32)
+        _same(tanimoto_topk_host(q0, d0, 3), r_host(q0, d0, 3))
+        s, i = tanimoto_topk_naive(torch.from_numpy(q0), torch.from_numpy(d0), 3)
+        _same((s.numpy(), i.numpy()), r_naive(q0, d0, 3))
+    with pytest.raises(ValueError, match="k must be"):
+        tanimoto_topk_host(q, db, 0)
 
 
 def test_plain_fingerprint_tie_flood_rows_ascend():
