@@ -37,10 +37,15 @@
    also without the causal mask at whisper-small's encoder (B = 8, H =
    12, S = 1,500, D = 64: 11 key tiles and one of 92) and its cross
    attention (Sq = 416 against Skv = 1,500), SDPA timed without a mask.
+   At every attention shape the kernel also runs as training calls it,
+   writing the rows' log-sum-exp: the output must be bit-identical and the
+   lse within 1e-5 (1 + |lse|) of ``attention_lse_ref`` (+inf exactly
+   where a row sees no key).
    After the build, ptxas must report no spills in ``flash_attention.cu``,
-   ``sorted_probe.cu`` and ``hash_mix.cu``, and ``cuobjdump -sass`` must
-   show each redesigned kernel's instruction (``DESIGN_OPCODES``):
-   ``HGMMA`` and ``UTMALDG`` in the tensor-core attention kernel,
+   ``flash_attention_bwd.cu``, ``sorted_probe.cu`` and ``hash_mix.cu``,
+   and ``cuobjdump -sass`` must show each redesigned kernel's instruction
+   (``DESIGN_OPCODES``): ``HGMMA`` and ``UTMALDG`` in the tensor-core
+   attention kernel and in both product kernels of its backward,
    ``LDGSTS`` (``cp.async``) in the staged kernel of ``hash_mix``.
    Prints each kernel's time, the plain version's, a PyTorch library
    call's where one computes the same function, and the least time the
@@ -168,14 +173,18 @@
    the states' gradient equals autograd through the plain version on the
    card bit for bit, the decay's within 1e-5 of its terms' magnitude, the
    backward launch timed warm and cold; ``flash_attention``'s backward
-   (PyTorch ops after the kernel's forward) in bf16 at yi-6b's training
-   shape (B = 4, Hq = 32, Hkv = 4, S = 2,048, D = 128, causal) and at
-   gemma3-12b's window (S = 4,096, D = 256, window 1,024) and, without
-   the causal mask, at whisper-small's encoder (B = 4, H = 12, S = 1,500,
-   D = 64): dq, dk, dv
-   within ``grad_bound_excess``'s bound (derived from the forward's), a
-   backward without ``D = rowsum(dO * O)`` outside it, SDPA's backward
-   timed beside it.  Then, after the MoE phases: yi-6b,
+   kernel (``csrc/flash_attention_bwd.cu``, reached through autograd after
+   the tensor-core forward) in bf16 at yi-6b's training shape (B = 4, Hq
+   = 32, Hkv = 4, S = 2,048, D = 128, causal), at gemma3-12b's window (S
+   = 4,096, D = 256, window 1,024) and, without the causal mask, at
+   whisper-small's encoder (B = 4, H = 12, S = 1,500, D = 64): one
+   backward (three kernels), dq, dk, dv within
+   ``grad_bound_excess(tensor_core=True)`` (the forward's bound plus the
+   kernel's bf16 roundings of P and dS), a backward without ``D =
+   rowsum(dO * O)`` and one that drops keys 0..63 outside it, two
+   launches bit-identical, the lse held to its plain version; timed warm
+   and cold beside the PyTorch-ops backward (the plain version) and
+   SDPA's backward.  Then, after the MoE phases: yi-6b,
    moonshot-v1-16b-a3b and mamba2-1.3b at full width cut to 2 layers in
    float32, one train state, one batch: loss and every parameter's
    gradient card against CPU within ``MODEL_ATOL``/``MODEL_RTOL``, none
@@ -189,8 +198,9 @@
    moments need about 97 GB: more than the card), under the remat policy
    "names" (the default), with step ms, tokens/s,
    peak memory, every kernel's launches a step (144 ``ssd_scan``, 8
-   tensor-core ``flash_attention``), one more step under the profiler
-   (the attention backward's share) and the final checkpoint's seconds
+   tensor-core ``flash_attention``, 4 backward kernels), one more step
+   under the profiler (the attention backward's share, by span and by its
+   kernels' names) and the final checkpoint's seconds
    and bytes (then deleted); then 3 more steps of the same state under
    "nothing" (no checkpoint), with the same launches a step (under both
    policies the attention forward and the scan run again in the backward:
@@ -219,7 +229,9 @@
    ``step_time_lb`` is printed beside step 6's warm prefill and step 11's
    median step and may not exceed 1.05 x it; then yi-6b x ``train_4k`` on
    the 32 x 8 fake mesh, and its seconds.
-13. A ``{"kernels": [...]}`` line (``launches`` summed over the paths:
+13. A ``{"kernels": [...]}`` line, six entries, the attention backward
+   the sixth (``launches`` summed over the paths; the backward's are
+   training's:
    ``hash_mix`` in the service, ``digest_ids`` and training's batch
    verify, ``flash_attention`` in yi-6b's static and continuous serving,
    whisper-small's, moonshot's, training and the mesh phase, ``ssd_scan``
@@ -760,7 +772,12 @@ def attention_case(case: FaCase, seed: int):
     same bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
-    from repro_torch.kernels.flash_attention.ref import bound_excess, flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse_ref,
+        bound_excess,
+        flash_attention_ref,
+        lse_excess,
+    )
     from repro_torch.models.common import paged_view
 
     name, b, hq, hkv, s, sk, d, window, causal, paged = case
@@ -794,8 +811,20 @@ def attention_case(case: FaCase, seed: int):
             q, k, v, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=True)
 
-    out = flash_attention_cuda(q, k, v, **mode).float()
+    out = flash_attention_cuda(q, k, v, **mode)
+    # training asks the same kernel for the rows' log-sum-exp: the output's
+    # bits may not move, and the lse is held to its plain version
+    out_lse, lse = flash_attention_cuda(q, k, v, **mode, return_lse=True)
+    same_bits = torch.equal(out.view(torch.int16), out_lse.view(torch.int16))
+    out = out.float()
     qf, kf, vf = q.float(), k.float(), v.float()
+    lse_ratio = lse_excess(lse, attention_lse_ref(qf, kf, vf, **mode))
+    del out_lse, lse
+    if not same_bits:
+        fail(f"flash_attention {name}: the output's bits change when the lse is written")
+    if not lse_ratio <= 1.0:
+        fail(f"flash_attention {name}: the kernel's lse at {lse_ratio:.4g} of its "
+             f"tolerance (1e-5 (1 + |lse|), +inf where no key is seen)")
     ref = flash_attention_ref(qf, kf, vf, **mode)
     abs_v = flash_attention_ref(qf, kf, vf.abs(), **mode)
     err, ratio = float((out - ref).abs().max()), bound_excess(out, ref, abs_v)
@@ -813,7 +842,9 @@ def attention_case(case: FaCase, seed: int):
            f"{ratio:.4g} of it (output-cast-only bound: "
            f"{bound_excess(out, ref):.4g}); losing keys 0..{FA_DROP - 1} reads "
            f"{wrong:.4g}; sdpa reads {lib_derived:.4g} (cast-only {lib_cast:.4g}) "
-           f"and equals the kernel's output at {same:.4f} of the elements")
+           f"and equals the kernel's output at {same:.4f} of the elements; with the "
+           f"lse written the output is bit-identical, lse at {lse_ratio:.4g} of "
+           f"1e-5 (1 + |lse|)")
     if not ratio <= 1.0:
         fail(f"flash_attention {name}: max_abs_err {err} outside the bound ({tol})")
     if not wrong > 1.0:
@@ -844,9 +875,11 @@ def attention_case(case: FaCase, seed: int):
 
 # sources whose kernels must not spill, and what each redesigned kernel's
 # SASS must hold: (source, kernel, opcodes)
-NO_SPILL_SOURCES = ("flash_attention", "sorted_probe", "hash_mix")
+NO_SPILL_SOURCES = ("flash_attention", "flash_attention_bwd", "sorted_probe", "hash_mix")
 DESIGN_OPCODES = (
     ("flash_attention", "fa_forward_tc", ("HGMMA", "UTMALDG")),  # wgmma, TMA
+    ("flash_attention_bwd", "fa_backward_dkdv", ("HGMMA", "UTMALDG")),
+    ("flash_attention_bwd", "fa_backward_dq", ("HGMMA", "UTMALDG")),
     ("hash_mix", "hash_mix_staged_kernel", ("LDGSTS",)),         # cp.async
 )
 
@@ -2202,20 +2235,57 @@ def ssd_scan_backward_case(seed: int):
     return dict(ms=ms, cold_ms=cold, plain_ms=plain, bound_ms=bnd, whole_ms=whole)
 
 
+def drop_key_tile(q, k, v, out, d_out, lse, grads, causal, window, tile=FA_DROP):
+    """``grads`` as a backward that never visits keys 0 .. tile - 1 would
+    give them: dk and dv of those keys 0, dq without their ``scale dS K``
+    terms (dS from the kernel's lse and bf16 output, in float32)."""
+    dq, dk, dv = (x.float() for x in grads)
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g, scale = hq // hkv, d ** -0.5
+    kt, vt = (x[:, :, None, :tile].float() for x in (k, v))
+    pos = torch.arange(sq, device=q.device)[:, None] + skv - sq
+    key = torch.arange(kt.shape[3], device=q.device)[None, :]
+    vis = key <= pos if causal else torch.ones_like(key <= pos)
+    if window is not None:
+        vis = vis & (key > pos - window)
+    s = (q.float() * scale).reshape(b, hkv, g, sq, d) @ kt.transpose(-1, -2)
+    p = torch.exp(s.masked_fill(~vis, -torch.inf) - lse.reshape(b, hkv, g, sq, 1))
+    do = d_out.float().reshape(b, hkv, g, sq, d)
+    delta = (do * out.float().reshape(b, hkv, g, sq, d)).sum(-1, keepdim=True)
+    ds = p * (do @ vt.transpose(-1, -2) - delta)
+    dq = dq - scale * (ds @ kt).reshape(b, hq, sq, d)
+    dk[:, :, :tile] = 0.0
+    dv[:, :, :tile] = 0.0
+    return dq, dk, dv
+
+
 def attention_backward_case(case: FaCase, seed: int):
-    """flash_attention's backward (grad.py, PyTorch ops after the kernel's
-    forward) in bfloat16 at a training shape: dq, dk, dv within the bound
-    ``grad_bound_excess`` derives from the forward's, against autograd
-    through the plain version in float32; a backward that drops the
-    ``D = rowsum(dO * O)`` term must read outside it.  Timed beside SDPA's
+    """flash_attention's backward kernel (``csrc/flash_attention_bwd.cu``,
+    after the tensor-core forward, which then writes the rows'
+    log-sum-exp) in bfloat16 at a training shape, through autograd: one
+    backward launch (its three kernels once each); dq, dk, dv within
+    ``grad_bound_excess(tensor_core=True)`` (derived from the forward's
+    bound plus the kernel's bf16 roundings of P and dS) against autograd
+    through the plain version in float32; a backward without ``D =
+    rowsum(dO * O)`` and one that drops the first key tile must read
+    outside it; two launches bit-identical; the forward's lse within
+    ``lse_excess``'s tolerance.  Timed warm and L2-cold beside the plain
+    version (``flash_attention_bwd``, float32 PyTorch ops) and SDPA's
     backward (for the record: the port never calls it)."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.backward import flash_attention_bwd_cuda
     from repro_torch.kernels.flash_attention.grad import flash_attention_bwd
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda, route
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import grad_bound_excess
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse_ref,
+        grad_bound_excess,
+        lse_excess,
+    )
 
     name, b, hq, hkv, s, _, d, window, causal, _ = case
+    mode = dict(causal=causal, window=window)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 11)
@@ -2224,46 +2294,76 @@ def attention_backward_case(case: FaCase, seed: int):
     d_out = torch.randn((b, hq, s, d), generator=g, device=dev).to(torch.bfloat16)
     if route(q, k, v) != "tensor_core":
         fail(f"flash_attention backward {name}: the forward left the tensor-core route")
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    counters = ("launches", "delta_launches", "dkdv_launches", "dq_launches")
+    before = [getattr(flash_attention_bwd_cuda, c) for c in counters]
+    out = flash_attention(q, k, v, **mode)
     if out.grad_fn is None:
         fail("flash_attention: the kernel's output carries no grad_fn")
     grads = torch.autograd.grad(out, (q, k, v), d_out)
-    ratios = grad_bound_excess(q, k, v, d_out, grads, causal, window)
-    wrong = grad_bound_excess(q, k, v, d_out, flash_attention_bwd(
-        q.detach(), k.detach(), v.detach(), torch.zeros_like(out), d_out, causal,
-        window), causal, window)
-    del grads
-    if not max(ratios) <= 1.0:
-        fail(f"flash_attention backward {name}: dq, dk, dv at {ratios} of the bound")
-    if not max(wrong) > 1.0:
-        fail(f"flash_attention backward {name}: the bound passes a backward without D")
+    torch.cuda.synchronize()
+    launched = [getattr(flash_attention_bwd_cuda, c) - n for c, n in zip(counters, before)]
+    if launched != [1, 1, 1, 1]:
+        fail(f"flash_attention backward {name}: launches {dict(zip(counters, launched))}, "
+             "want one backward of three kernels")
     qd, kd, vd, od = (t.detach() for t in (q, k, v, out))
-    ms = cuda_ms(lambda: flash_attention_bwd(qd, kd, vd, od, d_out, causal, window), 5,
-                 warmup=1)
-    fwd = cuda_ms(lambda: flash_attention_cuda(qd, kd, vd, causal, window), 10)
+    plain_out = flash_attention_cuda(qd, kd, vd, **mode)
+    _, lse = flash_attention_cuda(qd, kd, vd, **mode, return_lse=True)
+    if not torch.equal(plain_out.view(torch.int16), od.view(torch.int16)):
+        fail(f"flash_attention backward {name}: the forward's bits change with the lse")
+    lse_ratio = lse_excess(lse, attention_lse_ref(qd.float(), kd.float(), vd.float(), **mode))
+    ratios = grad_bound_excess(q, k, v, d_out, grads, causal, window, tensor_core=True)
+    no_d = grad_bound_excess(q, k, v, d_out, flash_attention_bwd(
+        qd, kd, vd, torch.zeros_like(od), d_out, **mode), causal, window, tensor_core=True)
+    lost = grad_bound_excess(q, k, v, d_out, drop_key_tile(
+        qd, kd, vd, od, d_out, lse, grads, causal, window), causal, window,
+        tensor_core=True)
+    again = [flash_attention_bwd_cuda(qd, kd, vd, od, d_out, lse, **mode) for _ in range(2)]
+    same = all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+               for x, y in zip(*again))
+    plain = flash_attention_bwd(qd, kd, vd, od, d_out, **mode)
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(grads, plain))
+    del again, plain_out
+    checks = (f"dq, dk, dv at {', '.join(f'{r:.4g}' for r in ratios)} of the derived "
+              f"tensor-core bound (without D: {', '.join(f'{r:.4g}' for r in no_d)}; keys "
+              f"0..{FA_DROP - 1} dropped: {', '.join(f'{r:.4g}' for r in lost)}); two "
+              f"launches {'bit-identical' if same else 'DIFFERENT'}; lse at "
+              f"{lse_ratio:.4g} of 1e-5 (1 + |lse|); max |kernel - plain| {err:.6g}")
+    if not max(ratios) <= 1.0:
+        fail(f"flash_attention backward {name}: outside the bound ({checks})")
+    if not (max(no_d) > 1.0 and max(lost) > 1.0):
+        fail(f"flash_attention backward {name}: the bound passes a wrong backward ({checks})")
+    if not same or not lse_ratio <= 1.0:
+        fail(f"flash_attention backward {name}: {checks}")
+    del grads
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    kern = lambda: flash_attention_bwd_cuda(qd, kd, vd, od, d_out, lse, **mode)  # noqa: E731
+    ms = cuda_ms(kern, 20)
+    cold = cold_ms(kern, 10, flush)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd(qd, kd, vd, od, d_out, **mode), 3,
+                       warmup=1)
+    fwd = cuda_ms(lambda: flash_attention_cuda(qd, kd, vd, **mode), 10)
     mask = sdpa_mask(case, dev)
     lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                              is_causal=causal and mask is None,
                                              enable_gqa=True)
     library = cuda_ms(lambda: torch.autograd.grad(lib_out, (q, k, v), d_out,
-                                                  retain_graph=True), 5, warmup=1)
-    # S twice (lse, then P), dP, dV, dQ, dK; q, out, dO, k, v in; dk, dv out
+                                                  retain_graph=True), 10, warmup=2)
+    # S, dP, dV, dQ, dK of the visible pairs; q, out, dO, k, v, lse in; dq,
+    # dk, dv out; D written and read
     flops, nbytes = attention_bwd_work(b, hq, hkv, s, s, d, causal, window, 2)
     bnd, by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                  (flops / F32_FLOPS_PER_S * 1e3, "operations"))
-    tc_bnd = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+                  (flops / BF16_FLOPS_PER_S * 1e3, "operations"))
     print(f"flash_attention backward[{name}]: B={b} Hq={hq} Hkv={hkv} S={s} D={d} "
-          f"window={window} bf16 {'causal' if causal else 'non-causal'}; dq, dk, dv at "
-          f"{', '.join(f'{r:.4g}' for r in ratios)} "
-          f"of the derived bound (a backward without D reads "
-          f"{', '.join(f'{r:.4g}' for r in wrong)}); backward_ms={ms:.6f} (PyTorch ops, "
-          f"float32 products) forward kernel_ms={fwd:.6f} library_ms(sdpa backward)="
-          f"{library:.6f} flops={flops} bound_ms={bnd:.6f} ({by}, at the float32 peak "
-          f"its products run at; {tc_bnd:.6f} at the bf16 tensor-core peak a "
-          f"hand-written backward kernel could use)", flush=True)
-    del q, k, v, out, d_out, lib_out, qd, kd, vd, od, mask
+          f"window={window} bf16 {'causal' if causal else 'non-causal'}; {checks}; "
+          f"kernel_ms={ms:.6f} cold_ms={cold:.6f} plain_ms={plain_ms:.6f} (PyTorch ops, "
+          f"float32 products) library_ms(sdpa backward)={library:.6f} forward "
+          f"kernel_ms={fwd:.6f} flops={flops} bytes={nbytes} bound_ms={bnd:.6f} ({by}, "
+          f"five products at the bf16 tensor-core peak) tflops(5 products)="
+          f"{flops / ms / 1e9:.1f}", flush=True)
+    del q, k, v, out, d_out, lib_out, qd, kd, vd, od, lse, mask, flush
     torch.cuda.empty_cache()
-    return dict(ms=ms, fwd_ms=fwd, library_ms=library, ratios=ratios)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library, bound_ms=bnd, bound_by=by,
+                max_abs_err=err)
 
 
 def _loss_and_grads(api, model, batch):
@@ -2411,9 +2511,10 @@ def crash_resume_phase(work: Path, seed: int) -> None:
 
 def profile_train_step(tr, state, step: int, card: str, label: str) -> dict:
     """One more train step under ``torch.profiler``: the device busy time,
-    the share of it under the ``flash_attention.backward`` span (the
-    attention backward's PyTorch ops) and in the ``ssd_scan`` kernel, and
-    the kernels that take the most."""
+    the share of it under the ``flash_attention.backward`` span and in the
+    backward's kernels by name (``fa_backward_*``, so that the share does
+    not rest on the profiler tying ctypes launches to the span), in the
+    ``ssd_scan`` kernel, and the kernels that take the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2436,6 +2537,7 @@ def profile_train_step(tr, state, step: int, card: str, label: str) -> dict:
         per[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     scan = sum(t for name, (t, _) in per.items() if "ssd_scan" in name)
     fa_fwd = sum(t for name, (t, _) in per.items() if "fa_forward" in name)
+    fa_bwd = sum(t for name, (t, _) in per.items() if "fa_backward" in name)
     tops = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
     top = "; ".join(f"{k[:50]} {t:.3f} ms x{n}" for k, (t, n) in tops)
     if busy <= 0:
@@ -2445,11 +2547,12 @@ def profile_train_step(tr, state, step: int, card: str, label: str) -> dict:
     print(f"train_profile[{label}]: one step under the profiler, wall {wall * 1e3:.3f} ms, "
           f"device busy {busy:.3f} ms ({busy / (wall * 1e3):.3f} of the wall); "
           f"flash_attention.backward span {attn_bwd:.3f} ms = {attn_bwd / busy:.4f} of the "
-          f"busy time; fa_forward kernels {fa_fwd:.3f} ms = {fa_fwd / busy:.4f}; "
+          f"busy time; fa_backward kernels {fa_bwd:.3f} ms = {fa_bwd / busy:.4f}; "
+          f"fa_forward kernels {fa_fwd:.3f} ms = {fa_fwd / busy:.4f}; "
           f"ssd_scan kernel {scan:.3f} ms = {scan / busy:.4f}; top: {top}; card: {card}",
           flush=True)
     return dict(busy_ms=busy, attn_bwd_ms=attn_bwd, attn_bwd_share=attn_bwd / busy,
-                scan_ms=scan)
+                bwd_kernels_ms=fa_bwd, bwd_kernels_share=fa_bwd / busy, scan_ms=scan)
 
 
 def full_training_phase(work: Path, arch: str, layers, steps: int, card: str,
@@ -2461,8 +2564,9 @@ def full_training_phase(work: Path, arch: str, layers, steps: int, card: str,
     one (timed, sized, deleted).  Every kernel's launches per step are
     counted (reset just before the run); ``flash_attention`` must launch
     twice a layer a step (forward, recompute) on the tensor-core route,
-    ``ssd_scan`` three times (forward, recompute, backward).  Then one
-    more step under the profiler."""
+    ``ssd_scan`` three times (forward, recompute, backward), and the
+    attention backward kernel once a layer a step (its three kernels once
+    each).  Then one more step under the profiler."""
     import shutil
 
     from repro_torch.launch import train
@@ -2509,9 +2613,12 @@ def full_training_phase(work: Path, arch: str, layers, steps: int, card: str,
         if not np.isfinite(h["loss"]) or not np.isfinite(h["grad_norm"]):
             fail(f"train[{arch}]: step {h['step']} loss {h['loss']} not finite")
     fam = tr.api.cfg.family
-    want = {"flash_attention": 2 * n_layers if fam != "ssm" else 0,
-            "flash_attention.tc_launches": 2 * n_layers if fam != "ssm" else 0,
-            "ssd_scan": 3 * n_layers if fam == "ssm" else 0}
+    attn = n_layers if fam != "ssm" else 0
+    want = {"flash_attention": 2 * attn, "flash_attention.tc_launches": 2 * attn,
+            "ssd_scan": 3 * n_layers if fam == "ssm" else 0,
+            "flash_attention_bwd": attn, "flash_attention_bwd.delta_launches": attn,
+            "flash_attention_bwd.dkdv_launches": attn,
+            "flash_attention_bwd.dq_launches": attn}
     for i, got in enumerate(per_step):
         for k, n in want.items():
             if got[k] != n:
@@ -2849,6 +2956,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     try:
         from repro_torch.kernels import build
+        from repro_torch.kernels.flash_attention.backward import flash_attention_bwd_cuda
         from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
         from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
         from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
@@ -2950,6 +3058,7 @@ def main() -> None:
         print(f"MoE phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         train_wrappers = {"flash_attention": flash_attention_cuda,
+                          "flash_attention_bwd": flash_attention_bwd_cuda,
                           "ssd_scan": ssd_scan_cuda, "hash_mix": hash_mix_cuda,
                           "sorted_probe": sorted_probe_cuda}
         train_parity_phase(Path(work), args.seed, lm_wrappers)
@@ -2967,7 +3076,8 @@ def main() -> None:
         print(f"mesh phases after training: {time.perf_counter() - t0:.1f} s", flush=True)
     hm_serving = launches["hash_mix"]
     train_total = {k: sum(step[k] for t in trained.values() for step in t["launches"])
-                   for k in ("flash_attention", "ssd_scan", "hash_mix", "sorted_probe")}
+                   for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "hash_mix",
+                             "sorted_probe")}
     launches["hash_mix"] += digest_launches + train_total["hash_mix"]
     launches["flash_attention"] = (fa_static + fa_cont + fa_moe + fa_whisper
                                    + train_total["flash_attention"] + fa_mesh + fa_ep)
@@ -2981,12 +3091,16 @@ def main() -> None:
           f"and moonshot expert-parallel prefill {fa_ep}; ssd_scan mamba2 serving + "
           f"training {train_total['ssd_scan']} + the mesh trainer {ssd_mesh}; "
           f"sorted_probe in training "
-          f"{train_total['sorted_probe']} (the launcher's index is in memory)", flush=True)
+          f"{train_total['sorted_probe']} (the launcher's index is in memory); "
+          f"flash_attention backward kernel in training {train_total['flash_attention_bwd']}",
+          flush=True)
     yi = trained["yi-6b"]
     est = fa_bwd["ms"] * 4 / yi["step_ms"]
-    print(f"attention backward share of the yi-6b training step (4 layers): profiler "
-          f"{yi['prof'].get('attn_bwd_share', 'not measured')}; from the kernel phase's "
-          f"backward_ms x 4 layers / step_ms: {est:.4f}", flush=True)
+    print(f"attention backward share of the yi-6b training step (4 layers, step_ms "
+          f"{yi['step_ms']:.3f}): profiler span "
+          f"{yi['prof'].get('attn_bwd_share', 'not measured')}, its kernels by name "
+          f"{yi['prof'].get('bwd_kernels_share', 'not measured')}; from the kernel "
+          f"phase's kernel_ms x 4 layers / step_ms: {est:.4f}", flush=True)
 
     kernels = [
         dict(name="sorted_probe", route="cuda",
@@ -3009,6 +3123,11 @@ def main() -> None:
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:36",
              launches=launches["ssd_scan"], **ssd),
+        dict(name="flash_attention_backward", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="the gradient of src/repro/kernels/flash_attention/kernel.py:97 "
+                      "(jax.grad of its chunked XLA path)",
+             launches=train_total["flash_attention_bwd"], **fa_bwd),
     ]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

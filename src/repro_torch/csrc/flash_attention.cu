@@ -42,7 +42,9 @@
 //   and V read MN-major (the transpose bit).  A consumer issues tile j's
 //   Q K^T and tile j-1's P V together and runs tile j's softmax while the
 //   P V is still on the tensor cores.  l sums the unrounded float32 p.
-//   The epilogue divides by l (0 where l == 0) and writes bf16.  No split
+//   The epilogue divides by l (0 where l == 0) and writes bf16, and, when
+//   asked (training), the rows' log-sum-exp for the backward
+//   (flash_attention_bwd.cu), after the output and without touching it.  No split
 //   over keys and no atomics: two launches give the same bits.  Rounding
 //   P to bf16 is the one step the plain version does not take; it moves
 //   the output by at most 2^-8 sum_j p_j |v_j| / l (the checks in
@@ -75,7 +77,6 @@
 // returns the launch's cudaError_t (0 on success), or for the tensor-core
 // route a negative code when a tensor map cannot be made.
 
-#include <cuda.h>  // CUtensorMap and its enums only: no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -397,10 +398,12 @@ constexpr int kConsumerWarps = 8;   // arrivals on an empty barrier
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kProducerRegs * 128 + kConsumerRegs * 256 <= 65536, "registers");
 
 struct TcArgs {
   void* o;
+  float* lse;  // (B, Hq, Sq) row log-sum-exp, or null: not written
   int hq, hkv, sq, skv, d;
   int causal, has_window, window;
   float scale_log2;  // scale * log2(e): scores go to exp2
@@ -474,15 +477,6 @@ struct Frag {
   int wpos_last;
 };
 
-// 2^x in one MUFU instruction.  exp2f wraps it in three more to keep
-// results below 2^-126, which this flushes to 0: such a p is far below the
-// last bit of its row's l (>= 1, the row's max key gives p = 1).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One tile of the online softmax, in place: scores s of keys k0 .. k0 +
 // BK - 1 become p = exp2(s * scale log2 e - m) (0 where masked); m and
 // this thread's share of l move on; alpha = exp2(m_old - m_new) per row.
@@ -512,13 +506,13 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2], float (&m)[2]
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
     const float m_new = fmaxf(m[r], mx[r]);
-    alpha[r] = ex2(m[r] - m_new);
+    alpha[r] = sm90::ex2(m[r] - m_new);
     m[r] = m_new;
   }
   float psum[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) {
-    float p = ex2(s[e] - m[(e >> 1) & 1]);
+    float p = sm90::ex2(s[e] - m[(e >> 1) & 1]);
     // the masked entries (a visible score reaches -1e30 only for inputs
     // near bf16's range)
     if (kMasked && s[e] == kNegInf) p = 0.0f;
@@ -726,6 +720,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       lsum += __shfl_xor_sync(kFull, lsum, 2);
       const float safe = lsum > 0.0f ? lsum : 1.0f;
       const int row = q0 + row0 + 8 * r;
+      // the row's natural-log log-sum-exp of the scaled scores: m and l
+      // are in base 2 of s * scale * log2 e, so ln(sum_j e^{s_j scale}) =
+      // (m + log2 l) ln 2; +inf for a row that sees no key (l == 0), so
+      // that the backward's exp(s - lse) is 0 there.  One thread of the
+      // quad writes it (m and l are the same in all four).
+      if (a.lse != nullptr && (lane & 3) == 0 && row < a.sq)
+        a.lse[static_cast<int64_t>(bh) * a.sq + row] =
+            lsum > 0.0f ? (m[r] + log2f(lsum)) * kLn2 : __int_as_float(0x7f800000);
       if (row < a.sq) {
         __nv_bfloat16* orow = op + static_cast<int64_t>(row) * a.d;
 #pragma unroll
@@ -756,57 +758,18 @@ cudaError_t launch_tc(const CUtensorMap& mq, const CUtensorMap& mk,
   return cudaGetLastError();
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver that the runtime already loaded,
-// so the library needs no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D bf16 map {D, S, H, B} with the 128-byte swizzle; zeros out of range.
-int encode(CUtensorMap* map, const void* base, const cuuint64_t* dims,
-           const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return -1;
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
-}
-
 }  // namespace
 
-// The tensor-core route (bfloat16 only).  dims: {D, S, H, B} of q, k, v (3 x
-// 4); strides: byte strides of S, H, B of q, k, v (3 x 3); boxes: {64, rows,
+// The tensor-core route (bfloat16 only).  lse: a float32 (B, Hq, Sq) buffer
+// for the rows' log-sum-exp (natural log, +inf for a row that sees no key),
+// or null to write none; the output is the same either way.  dims: {D, S, H,
+// B} of q, k, v (3 x 4); strides: byte strides of S, H, B of q, k, v (3 x 3); boxes: {64, rows,
 // 1, 1} of q, k, v (3 x 4), rows = 128 for q and bk for k, v.  dp, bk: the
 // tile shape (64, 128), (128, 128) or (256, 64).  window is read only when
 // has_window is set.  Returns a cudaError_t, -1 when the driver has no
 // cuTensorMapEncodeTiled, or -1000 - CUresult when a map is refused.
 extern "C" int flash_attention_tc_launch(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, float* lse,
     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* boxes,
     int batch, int hq, int hkv, int sq, int skv, int d, int dp, int bk,
     int causal, int has_window, int window, float scale, void* stream) {
@@ -822,10 +785,11 @@ extern "C" int flash_attention_tc_launch(
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int r = encode(&maps[i], bases[i], dims + 4 * i, strides + 3 * i, boxes + 4 * i);
+    const int r = sm90::encode_bf16_4d(&maps[i], bases[i], dims + 4 * i, strides + 3 * i,
+                                       boxes + 4 * i);
     if (r != 0) return r;
   }
-  TcArgs a{out, hq, hkv, sq, skv, d, causal, has_window, window, scale * kLog2e};
+  TcArgs a{out, lse, hq, hkv, sq, skv, d, causal, has_window, window, scale * kLog2e};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dp == 64 && bk == 128)

@@ -5,10 +5,14 @@
 // inline function; see the PTX ISA's sections on mbarrier,
 // cp.async.bulk.tensor, setmaxnreg and wgmma.
 //
-// Included by flash_attention.cu; the build hashes every header under
-// csrc/ with each source, so an edited header rebuilds its users.
+// Included by flash_attention.cu and flash_attention_bwd.cu; the build
+// hashes every header under csrc/ with each source, so an edited header
+// rebuilds its users.
 
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums only: no libcuda link
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -63,6 +67,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---- named barriers (ids 1..15; 0 is __syncthreads) ---------------------
+
+// wait until `count` threads (this one included) have reached barrier `id`
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// count this thread towards barrier `id` without waiting
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// 2^x in one MUFU instruction.  exp2f wraps it in three more to keep
+// results below 2^-126, which this flushes to 0: such a p is far below the
+// last bit of its row's sum.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 // copy the box at coordinates (c0, c1, c2, c3) of a 4-D tensor map into
@@ -75,6 +99,60 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver that the runtime already loaded,
+// so the library needs no -lcuda
+inline EncodeTiled tma_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map {D, S, H, B} with the 128-byte swizzle; zeros out of
+// range.  Returns 0, -1 when the driver has no cuTensorMapEncodeTiled, or
+// -1000 - CUresult when the map is refused.
+inline int encode_bf16_4d(CUtensorMap* map, const void* base, const cuuint64_t* dims,
+                          const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled fn = tma_encoder();
+  if (fn == nullptr) return -1;
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
+}
+
+// copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -33,7 +33,8 @@ __all__ = [
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("flash_attention", "hash_mix", "sorted_probe", "ssd_scan", "tanimoto")
+SOURCES = ("flash_attention", "flash_attention_bwd", "hash_mix", "sorted_probe",
+           "ssd_scan", "tanimoto")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

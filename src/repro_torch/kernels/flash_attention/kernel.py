@@ -21,7 +21,12 @@ alone (never after a failure):
   read): one 128-thread block per (batch x query head, query tile),
   float32 tiles in shared memory, products on the float32 CUDA cores.
 
-A tensor-core launch that fails raises; nothing falls back.
+A tensor-core launch that fails raises; nothing falls back.  With
+``return_lse`` the tensor-core kernel also writes each row's log-sum-exp
+(float32 ``(B, Hq, Sq)``, natural log of ``sum_j exp(scale q.k_j)`` over
+the visible keys, ``+inf`` for a row that sees none) for the backward
+kernel (``backward.py``); the output's bits are the same with or without
+it, and serving never asks for it.
 
 Strides: both kernels read q, k and v through their batch, head and
 sequence strides, so the ``(B, S, H, D) → (B, H, S, D)`` views of the
@@ -38,6 +43,7 @@ edges), and ``D`` up to 256.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -45,7 +51,8 @@ import torch
 from ..build import count_launch, load
 from .ref import check_shapes
 
-__all__ = ["MAX_D", "flash_attention_cuda", "route", "tc_tiles", "tensor_maps"]
+__all__ = ["MAX_D", "flash_attention_cuda", "map_dims", "route", "tc_tiles",
+           "tensor_maps", "tma_readable"]
 
 MAX_D = 256
 TC_BQ = 128        # query rows a tensor-core block takes
@@ -75,7 +82,7 @@ def _tc_fn():
     if _TC_FN is None:
         f = load("flash_attention").flash_attention_tc_launch
         f.argtypes = (
-            [ctypes.c_void_p] * 4
+            [ctypes.c_void_p] * 5
             + [ctypes.POINTER(ctypes.c_uint64)] * 2 + [ctypes.POINTER(ctypes.c_uint32)]
             + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
         )
@@ -96,22 +103,25 @@ def tc_tiles(d: int) -> Tuple[int, int]:
     return 256, 64
 
 
+def tma_readable(t: torch.Tensor) -> bool:
+    """A 4-D bf16 tensor that a ``{D, S, H, B}`` tensor map can read: base
+    16-byte aligned, unit-stride head dim, the other strides positive
+    multiples of 16 bytes."""
+    if t.dtype != torch.bfloat16 or t.ndim != 4 or t.data_ptr() % TMA_ALIGN:
+        return False
+    if t.shape[3] > 1 and t.stride(3) != 1:
+        return False
+    return all(t.stride(dim) * t.element_size() > 0
+               and t.stride(dim) * t.element_size() % TMA_ALIGN == 0 for dim in range(3))
+
+
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"tensor_core"`` or ``"cuda_core"``: which kernel takes these
     inputs.  Decided from dtypes, shapes, strides and base pointers only."""
     d = q.shape[-1]
     if d == 0 or d % 8 or d > MAX_D:
         return "cuda_core"
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16 or t.ndim != 4 or t.data_ptr() % TMA_ALIGN:
-            return "cuda_core"
-        if t.shape[3] > 1 and t.stride(3) != 1:
-            return "cuda_core"
-        for dim in range(3):
-            step = t.stride(dim) * t.element_size()
-            if step <= 0 or step % TMA_ALIGN:
-                return "cuda_core"
-    return "tensor_core"
+    return "tensor_core" if all(tma_readable(t) for t in (q, k, v)) else "cuda_core"
 
 
 def tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Dict[str, tuple]:
@@ -120,15 +130,16 @@ def tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Dict[str, 
     ``strides`` the byte strides of S, H and B, ``box`` ``(64, rows, 1,
     1)`` with ``rows`` = 128 query rows or ``BK`` keys."""
     _, bk = tc_tiles(q.shape[3])
-    out = {}
-    for name, t, rows in (("q", q, TC_BQ), ("k", k, bk), ("v", v, bk)):
-        size = t.element_size()
-        out[name] = dict(
-            dims=(t.shape[3], t.shape[2], t.shape[1], t.shape[0]),
-            strides=(t.stride(2) * size, t.stride(1) * size, t.stride(0) * size),
-            box=(64, rows, 1, 1),
-        )
-    return out
+    return {name: dict(map_dims(t), box=(64, rows, 1, 1))
+            for name, t, rows in (("q", q, TC_BQ), ("k", k, bk), ("v", v, bk))}
+
+
+def map_dims(t: torch.Tensor) -> Dict[str, tuple]:
+    """``dims`` ``(D, S, H, B)`` in elements and ``strides`` the byte
+    strides of S, H and B: a 4-D tensor map over ``t``'s strided view."""
+    size = t.element_size()
+    return dict(dims=(t.shape[3], t.shape[2], t.shape[1], t.shape[0]),
+                strides=(t.stride(2) * size, t.stride(1) * size, t.stride(0) * size))
 
 
 def flash_attention_cuda(
@@ -138,9 +149,11 @@ def flash_attention_cuda(
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """``q (B, Hq, Sq, D)``, ``k, v (B, Hkv, Skv, D)`` on one CUDA device,
-    float32 or bfloat16 → ``(B, Hq, Sq, D)`` in q's dtype."""
+    float32 or bfloat16 → ``(B, Hq, Sq, D)`` in q's dtype; with
+    ``return_lse`` (tensor-core route only) ``(out, lse)``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
@@ -159,19 +172,26 @@ def flash_attention_cuda(
         raise ValueError(f"head dim {d} above the kernel's {MAX_D}")
     if -(-sq // 32) > 65_535:
         raise ValueError(f"Sq={sq} above the kernel's grid")
+    tc = route(q, k, v) == "tensor_core"
+    if return_lse and not tc:
+        raise ValueError("flash_attention_cuda: only the tensor-core route writes "
+                         "the log-sum-exp")
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=dev)
-    if out.numel() == 0:
+    # the kernel writes every row's log-sum-exp
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev) if return_lse else None
+    if out.numel() == 0 or skv == 0:  # skv == 0: no key is visible to any row
+        out.zero_()
+        if return_lse:
+            return out, lse.fill_(math.inf)
         return out
-    if skv == 0:  # no key is visible to any row
-        return out.zero_()
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     # a window as wide as the key stream masks nothing; one far below it
     # masks everything, as -2**30 does (the kernel's window is an int32)
     has_window = window is not None and window < skv
     win = max(int(window), -(2**30)) if has_window else 0
-    if route(q, k, v) == "tensor_core":
-        _launch_tc(q, k, v, out, b, hq, hkv, sq, skv, d, causal, has_window,
+    if tc:
+        _launch_tc(q, k, v, out, lse, b, hq, hkv, sq, skv, d, causal, has_window,
                    win, float(scale))
         count_launch(flash_attention_cuda, "tc_launches")
     else:
@@ -189,10 +209,10 @@ def flash_attention_cuda(
             raise RuntimeError(
                 f"flash_attention kernel launch failed: cudaError {err}")
     count_launch(flash_attention_cuda)
-    return out
+    return (out, lse) if return_lse else out
 
 
-def _launch_tc(q, k, v, out, b, hq, hkv, sq, skv, d, causal, has_window, win,
+def _launch_tc(q, k, v, out, lse, b, hq, hkv, sq, skv, d, causal, has_window, win,
                scale) -> None:
     maps = tensor_maps(q, k, v)
     dp, bk = tc_tiles(d)
@@ -203,6 +223,7 @@ def _launch_tc(q, k, v, out, b, hq, hkv, sq, skv, d, causal, has_window, win,
         stream = torch.cuda.current_stream().cuda_stream
         err = _tc_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             dims, strides, boxes, b, hq, hkv, sq, skv, d, dp, bk,
             int(causal), int(has_window), win, scale, stream,
         )

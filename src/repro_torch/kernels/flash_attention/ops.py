@@ -7,7 +7,8 @@ launches the CUDA kernel; a CPU tensor runs the plain PyTorch version.  A
 CUDA tensor never falls back to the plain version; a ``meta`` tensor (the
 dry-run) gives an empty output and counts the kernel's work; a DTensor
 raises.  Gradients flow through
-:class:`~.grad.FlashAttention`: the forward is the kernel, the backward
+:class:`~.grad.FlashAttention`: on the card the forward and, after a
+tensor-core forward, the backward are kernels; elsewhere the backward is
 PyTorch ops (see grad.py).
 """
 
@@ -32,7 +33,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """``(B, Hq, Sq, D)`` in q's dtype, differentiable; see kernel/ref/grad."""
     reject_dtensors("flash_attention", q, k, v)
-    return FlashAttention.apply(q, k, v, causal, window, scale)
+    training = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, causal, window, scale, training)
 
 
 def reject_dtensors(kernel: str, *tensors: torch.Tensor) -> None:

@@ -54,12 +54,14 @@ def attention_work(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
 def attention_bwd_work(b: int, hq: int, hkv: int, sq: int, skv: int, d: int,
                        causal: bool, window: Optional[int],
                        itemsize: int) -> Tuple[int, int]:
-    """(FLOPs, bytes) of ``flash_attention``'s backward: six products of D
-    for each visible pair and head (the scores twice, for the log-sum-exp
-    and then for P; dP, dV, dQ, dK); q, the output and its gradient read,
-    k and v read and their gradients written."""
-    flops = 12 * b * hq * d * visible_pairs(sq, skv, causal, window)
-    nbytes = itemsize * b * d * (3 * hq * sq + 4 * hkv * skv)
+    """(FLOPs, bytes) of ``flash_attention``'s backward: five products of
+    D for each visible pair and head (S, dP, dV, dQ, dK; the forward
+    supplies the rows' log-sum-exp, so the scores are not summed twice); q,
+    the output and its gradient read and dq written, k and v read and
+    their gradients written, and the float32 log-sum-exp and ``D =
+    rowsum(dO * O)`` of each row, one pass each."""
+    flops = 10 * b * hq * d * visible_pairs(sq, skv, causal, window)
+    nbytes = itemsize * b * d * (4 * hq * sq + 4 * hkv * skv) + 2 * 4 * b * hq * sq
     return flops, nbytes
 
 

@@ -718,6 +718,27 @@ def test_ssd_scan_backward_on_the_card(cuda, bh, c, p, n):
     assert bool(torch.all((dd - wd).abs() <= 1e-5 * terms + 1e-6))
 
 
+def _check_backward_kernel(q, k, v, go, causal, window):
+    """The tensor-core route's backward beyond the bound: the forward's
+    bits are the same with and without the log-sum-exp, which agrees with
+    ``attention_lse_ref`` (``lse_excess``), and two launches of the
+    backward give the same bits."""
+    from repro_torch.kernels.flash_attention.backward import flash_attention_bwd_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref, lse_excess
+
+    q, k, v = (t.detach() for t in (q, k, v))
+    plain = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, return_lse=True)
+    assert torch.equal(plain.view(torch.int16), out.view(torch.int16))
+    want = attention_lse_ref(q.float(), k.float(), v.float(), causal, window)
+    assert lse_excess(lse, want) <= 1.0
+    first = flash_attention_bwd_cuda(q, k, v, out, go, lse, causal, window)
+    second = flash_attention_bwd_cuda(q, k, v, out, go, lse, causal, window)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hq,hkv,sq,skv,window,causal", [
     (8, 2, 300, 300, None, True),
@@ -730,21 +751,66 @@ def test_flash_attention_backward_on_the_card(cuda, dtype, hq, hkv, sq, skv, win
                                               causal):
     """The kernel's output carries a grad_fn; dq, dk, dv against autograd
     through the plain version in float32 on the same values, within the
-    bound ``grad_bound_excess`` derives (float32: 1e-4)."""
+    bound ``grad_bound_excess`` derives.  bf16 (the tensor-core route): the
+    backward kernel runs, once, with its three kernels (the allowance adds
+    its bf16 roundings of P and dS), and ``_check_backward_kernel`` holds;
+    float32: the PyTorch-ops backward, no kernel (1e-4)."""
+    from repro_torch.kernels.flash_attention.backward import flash_attention_bwd_cuda
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import grad_bound_excess
 
     dt = getattr(torch, dtype)
+    tc = dt == torch.bfloat16
     q, k, v = _fa_inputs(cuda, dt, 2, hq, hkv, sq, skv, 64)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     go = torch.randn(q.shape, device=cuda).to(dt)
+    counters = ("launches", "delta_launches", "dkdv_launches", "dq_launches")
     before = flash_attention_cuda.launches
+    bwd = [getattr(flash_attention_bwd_cuda, c) for c in counters]
     out = flash_attention(q, k, v, causal=causal, window=window)
     assert out.grad_fn is not None and flash_attention_cuda.launches == before + 1
     got = torch.autograd.grad(out, (q, k, v), go)
-    ratios = grad_bound_excess(q, k, v, go, got, causal, window)
+    assert [getattr(flash_attention_bwd_cuda, c) - n for c, n in zip(counters, bwd)] == \
+        [int(tc)] * 4
+    ratios = grad_bound_excess(q, k, v, go, got, causal, window, tensor_core=tc)
     assert max(ratios) <= 1.0, ratios
+    if tc:
+        _check_backward_kernel(q, k, v, go, causal, window)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (1, 8, 2, 1000, 128, None),    # yi-6b's head dim, a ragged last tile
+    (1, 4, 4, 640, 128, 200),
+    (1, 4, 2, 700, 256, 256),      # gemma3's window at D = 256
+    (2, 2, 1, 333, 256, None),
+])
+def test_flash_attention_backward_kernel_head_dims(cuda, b, hq, hkv, s, d, window):
+    """The backward kernel at the training path's other head dims (causal,
+    bf16, the model's layout): the tensor-core bound, the log-sum-exp, the
+    forward's bits and determinism."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import grad_bound_excess
+
+    q, k, v = (t.detach().requires_grad_()
+               for t in _fa_inputs(cuda, torch.bfloat16, b, hq, hkv, s, s, d))
+    go = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    got = torch.autograd.grad(out, (q, k, v), go)
+    ratios = grad_bound_excess(q, k, v, go, got, True, window, tensor_core=True)
+    assert max(ratios) <= 1.0, ratios
+    _check_backward_kernel(q, k, v, go, True, window)
+
+
+def test_flash_attention_backward_sass_has_tensor_core_and_tma_instructions(cuda):
+    """Both product kernels of the backward issue wgmma (HGMMA) and TMA
+    loads (UTMALDG)."""
+    from repro_torch.kernels import build
+
+    text = build.sass("flash_attention_bwd")
+    for kernel in ("fa_backward_dkdv", "fa_backward_dq"):
+        ops = build.sass_opcode_counts(text, kernel, ("HGMMA", "UTMALDG"))
+        assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, (kernel, ops)
 
 
 def test_encdec_smoke_on_the_card_matches_the_cpu(cuda):

@@ -231,3 +231,103 @@ def test_grad_bound_holds_and_sees_a_lost_delta_term(case, dtype):
     wrong = flash_attention_bwd(q.detach(), k.detach(), v.detach(), torch.zeros_like(out),
                                 g, causal, window)
     assert max(grad_bound_excess(q, k, v, g, wrong, causal, window)) > 1.0
+
+
+# -- the tensor-core backward's bound ------------------------------------------
+
+def _kernel_emulation(q, k, v, out, g, causal, window, drop_tile=False, with_delta=True):
+    """The backward kernel's roundings on the CPU: float32 arithmetic on the
+    bf16 inputs and the bf16 forward output, ``P = exp(S - lse)`` from the
+    row log-sum-exp, P rounded to bf16 before ``dV = P^T dO``, dS rounded
+    to bf16 before ``dQ = scale dS K`` and ``dK = scale dS^T Q``, outputs
+    cast to bf16.  ``drop_tile``: the first 64 keys never visited (their
+    P is 0); ``with_delta=False``: ``D = rowsum(dO * O)`` lost."""
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref
+
+    qf, kf, vf, gf, of = (t.detach().float() for t in (q, k, v, g, out))
+    b, hq, sq, d = qf.shape
+    hkv, skv = kf.shape[1], kf.shape[2]
+    grp = hq // hkv
+    scale = d ** -0.5
+    kx, vx = kf.repeat_interleave(grp, 1), vf.repeat_interleave(grp, 1)
+    pos = torch.arange(sq)[:, None] + skv - sq
+    key = torch.arange(skv)[None, :]
+    vis = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        vis &= key <= pos
+    if window is not None:
+        vis &= key > pos - window
+    lse = attention_lse_ref(qf, kf, vf, causal, window)[..., None]
+    p = torch.exp((qf @ kx.transpose(-1, -2) * scale).masked_fill(~vis, -torch.inf) - lse)
+    if drop_tile:
+        p[..., :64] = 0.0
+    delta = (gf * of).sum(-1, keepdim=True) if with_delta else 0.0
+    ds = (p * (gf @ vx.transpose(-1, -2) - delta)).to(torch.bfloat16).float()
+    dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ gf
+    dq = scale * ds @ kx
+    dk = scale * ds.transpose(-1, -2) @ qf
+
+    def group_sum(x):
+        return x.reshape(b, hkv, grp, skv, d).sum(2)
+
+    return dq.bfloat16(), group_sum(dk).bfloat16(), group_sum(dv).bfloat16()
+
+
+# the backward kernel's cases: FA_CASES' masks at 64-key tiles (Skv > 64,
+# so that a dropped tile is one of several), whisper's unmasked encoder cut
+TC_BOUND_CASES = [
+    (1, 4, 2, 160, 160, 64, True, None),     # causal GQA
+    (1, 4, 1, 130, 130, 32, True, None),     # MQA, ragged tiles
+    (1, 2, 2, 200, 200, 64, True, 50),       # sliding window
+    (1, 4, 2, 70, 200, 64, True, None),      # Sq < Skv (suffix queries)
+    (1, 2, 2, 150, 150, 64, False, None),    # whisper's encoder, no mask
+]
+TC_BOUND_IDS = ["causal-gqa", "mqa", "window", "sq<skv", "no-mask"]
+
+
+def _bf16_case(case, seed):
+    b, hq, hkv, sq, skv, d, causal, window = case
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _seeded(seed, (b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d),
+                                   (b, hq, sq, d), dtype=np.float32))
+    out = flash_attention_ref(q, k, v, causal=causal, window=window)  # bf16, as the kernel's
+    return q, k, v, g, out, causal, window
+
+
+@pytest.mark.parametrize("case", TC_BOUND_CASES, ids=TC_BOUND_IDS)
+def test_tc_bound_holds_for_the_kernels_roundings(case):
+    """The tensor-core allowance (``grad_bound_excess(tensor_core=True)``)
+    holds for an emulation of the kernel's bf16 roundings of P and dS; the
+    f32 route's allowance does not (the rounded P moves dV by far more than
+    the output cast)."""
+    from repro_torch.kernels.flash_attention.ref import grad_bound_excess
+
+    q, k, v, g, out, causal, window = _bf16_case(case, 31)
+    got = _kernel_emulation(q, k, v, out, g, causal, window)
+    assert max(grad_bound_excess(q, k, v, g, got, causal, window, tensor_core=True)) <= 1.0
+    assert grad_bound_excess(q, k, v, g, got, causal, window)[2] > 1.0
+
+
+@pytest.mark.parametrize("case", TC_BOUND_CASES, ids=TC_BOUND_IDS)
+def test_tc_bound_sees_a_lost_delta_term_and_a_dropped_key_tile(case):
+    from repro_torch.kernels.flash_attention.ref import grad_bound_excess
+
+    q, k, v, g, out, causal, window = _bf16_case(case, 32)
+    for wrong in (dict(with_delta=False), dict(drop_tile=True)):
+        got = _kernel_emulation(q, k, v, out, g, causal, window, **wrong)
+        ratios = grad_bound_excess(q, k, v, g, got, causal, window, tensor_core=True)
+        assert max(ratios) > 1.0, (wrong, ratios)
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
+def test_tc_bound_reduces_to_the_f32_allowance_on_f32_inputs(case):
+    """On float32 inputs (u = 0) the tensor-core terms vanish: the same
+    ratios, bit for bit, as the f32 route's allowance."""
+    from repro_torch.kernels.flash_attention.ref import grad_bound_excess
+
+    *_, causal, window = case
+    q, k, v, g = (torch.from_numpy(a) for a in _fa_inputs(case, 33, np.float32))
+    got = tuple(torch.from_numpy(a) for a in _seeded(34, q.shape, k.shape, v.shape,
+                                                      dtype=np.float32))
+    assert grad_bound_excess(q, k, v, g, got, causal, window, tensor_core=True) == \
+        grad_bound_excess(q, k, v, g, got, causal, window)
