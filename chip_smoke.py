@@ -54,7 +54,18 @@
    8 x 64 heads, C = 8 chunks of 256, P = 64, N = 128) and at one
    65,536-token prompt's (BH = 64, C = 256); states from ``randn``, decay
    uniform in [0, 1); no PyTorch call computes the scan (``library_ms``
-   null).
+   null).  ``sample`` (``csrc/sample.cu``, the reference's
+   ``jax.random.categorical`` draw) against its plain version at yi-6b's
+   vocabulary (V = 64,000) and B = 8: the static engine's draw (one key
+   split in place; bf16 and f32) and the continuous engine's (per-lane
+   seeds and token indices, a float32 draw from f32 or bf16 logits, with
+   and without top-k 40).  The random bits and uniforms, which the kernel
+   copies out for the check, must equal the plain version's bit for bit,
+   the split key too, and the tokens except where the plain version's top
+   two scores lie within ``SAMPLE_NEAR_TIE`` (printed); timed queued behind
+   a sleep (the wrapper's host time hidden, as in a CUDA graph), back to
+   back and on the host, beside the plain version and ``torch.multinomial``
+   (not the same draw: ``library_ms`` null).
 3. The funnel end to end on the card through ``repro_torch.launch.funnel``
    (corpus, index, publish, intersect, lookup_batch, extract + verify) at
    100,000 records, plus an extraction through 17-bit hashed keys whose
@@ -119,7 +130,13 @@
    printed, and after ``close(drain=True)`` ``BlockManager.check()`` must
    pass and no block may stay in use; then an eager and a graph
    ``ContinuousEngine`` (prefix cache off) serve the 8 prompts in turns,
-   tokens identical, as above.  Then parity in float32 (yi-6b at
+   tokens identical, as above.  Then the same weights sampled
+   (temperature ``SAMPLE_TEMPERATURE``): a static eager and graph engine in
+   turns, then a continuous eager and graph engine (top-k
+   ``SAMPLE_TOP_K``, per-request seeds) in turns, tokens identical within
+   each engine and not all the greedy ones, tokens/s and ITL printed, the
+   ``sample`` kernel's launches counted over the phase (a first token, an
+   eager step, a capture's three steps; replays none).  Then parity in float32 (yi-6b at
    full width, 2 layers): the continuous engine's greedy tokens equal the
    static engine's, prefix on equals off (a differing token passes only
    where both tokens lie within ``NEAR_TIE`` of the top logit, printed),
@@ -229,9 +246,10 @@
    ``step_time_lb`` is printed beside step 6's warm prefill and step 11's
    median step and may not exceed 1.05 x it; then yi-6b x ``train_4k`` on
    the 32 x 8 fake mesh, and its seconds.
-13. A ``{"kernels": [...]}`` line, six entries, the attention backward
-   the sixth (``launches`` summed over the paths; the backward's are
-   training's:
+13. A ``{"kernels": [...]}`` line, seven entries, the attention backward
+   the sixth and ``sample`` the seventh (``launches`` summed over the
+   paths; the backward's are training's, the sampler's the sampled
+   serving phase's:
    ``hash_mix`` in the service, ``digest_ids`` and training's batch
    verify, ``flash_attention`` in yi-6b's static and continuous serving,
    whisper-small's, moonshot's, training and the mesh phase, ``ssd_scan``
@@ -247,6 +265,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import dataclasses
 import json
 import subprocess
 import sys
@@ -263,9 +282,10 @@ SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 
 try:  # the kernels' work, as the dry-run counts it
-    from repro_torch.kernels.work import attention_bwd_work, attention_work, scan_work
+    from repro_torch.kernels.work import (
+        attention_bwd_work, attention_work, sample_work, scan_work)
 except ImportError:  # run without the package: main() fails with the reason
-    attention_bwd_work = attention_work = scan_work = None
+    attention_bwd_work = attention_work = sample_work = scan_work = None
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): the HBM3
 # rate, and the 32-bit integer rate: half the 67e12 FP32 CUDA-core rate,
@@ -364,6 +384,17 @@ HYBRID = "jamba-1.5-large-398b"  # its smoke config: no hybrid config fits one c
 SERVE_LENGTHS = (17, 64, 160, 384, 768, 1152, 1600, 2047)  # prompt bytes
 SERVE_NEW_TOKENS = 32
 SERVE_MAX_LEN = 4096
+# sampled serving and the sampler kernel: the decode batch, a temperature
+# and top-k, the static engine's seed and the requests' first seed
+SAMPLE_ROWS = 8
+SAMPLE_TEMPERATURE = 0.8
+SAMPLE_TOP_K = 40
+SAMPLE_SEED = 23
+# the kernel and the plain version may order two perturbed scores apart
+# only where they lie within a few float32 ulps (the card's logf against
+# PyTorch's log on the card, an ulp apart at most): the gap relative to
+# max(1, |top score|), ``ref.top_two_gap``
+SAMPLE_NEAR_TIE = 4 * 2.0**-23
 # whisper-small is served within its published 448-token text context
 # (arXiv:2212.04356): the prompts are cut to 415 bytes (416 tokens with
 # BOS), so that prompt plus SERVE_NEW_TOKENS fits
@@ -941,6 +972,169 @@ def ssd_scan_case(case, seed: int):
                 bound_by=by, max_abs_err=err)
 
 
+def sample_case(seed: int):
+    """Hold the sampler kernel to its plain version on the card at yi-6b's
+    vocabulary and B = ``SAMPLE_ROWS``, in the draws the engines make: the
+    static engine's (one key split in place, bf16 and f32 logits, the draw
+    in their dtype) and the continuous engine's (per-lane seeds and token
+    indices, a float32 draw from f32 or bf16 logits, with and without
+    top-k).  Each element's random bits and uniform, which the kernel
+    copies out, must equal the plain version's bit for bit, and the split
+    key too; a token may differ only where the plain version's top two
+    scores lie within ``SAMPLE_NEAR_TIE`` (printed).  Then the static bf16
+    draw and the continuous f32 top-k draw are timed with their plain
+    versions, and ``torch.multinomial`` over the softmax, the draw the
+    engines made before (not the same function: no ``library_ms``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.sample import ref as S
+    from repro_torch.kernels.sample.kernel import sample_cuda
+
+    dev = torch.device("cuda")
+    r, v = SAMPLE_ROWS, get_config("yi-6b").vocab_size
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 11)
+    logits32 = torch.randn((r, v), generator=g, device=dev) * 4
+    seeds = torch.randint(-2**31, 2**31, (r,), generator=g, device=dev,
+                          dtype=torch.int32)
+    index = torch.randint(0, SERVE_NEW_TOKENS, (r,), generator=g, device=dev,
+                          dtype=torch.int32)
+    cases = (("static bf16", torch.bfloat16, torch.bfloat16, "split", 0),
+             ("static f32", torch.float32, torch.float32, "split", 0),
+             ("continuous f32", torch.float32, torch.float32, "lanes", 0),
+             ("continuous f32 top-k", torch.float32, torch.float32, "lanes", SAMPLE_TOP_K),
+             ("continuous bf16 logits top-k", torch.bfloat16, torch.float32, "lanes",
+              SAMPLE_TOP_K))
+    err, timed_args = 0.0, {}
+    for name, ldt, ddt, mode, k in cases:
+        logits = logits32.to(ldt)
+        inv_t = S.inv_temperature(SAMPLE_TEMPERATURE, ddt)
+        kth = S.top_k_threshold(logits, k, inv_t, ddt) if k else None
+
+        def make():
+            if mode == "split":
+                return dict(keys=S.prng_key(seed, dev), split_key=True)
+            return dict(seeds=seeds, index=index)
+
+        kw, kw_ref = make(), make()
+        noise = (torch.empty((r, v), dtype=torch.int32, device=dev),
+                 torch.empty((r, v), device=dev))
+        got = sample_cuda(logits, inv_t, ddt, kth=kth, noise=noise, **kw)
+        bits = S.sample_bits(r, v, dev, **make())
+        scores = S.sample_scores(logits, inv_t, ddt, kth=kth, **kw_ref)
+        torch.cuda.synchronize()
+        if not torch.equal(noise[0].long() & M32, bits):
+            fail(f"sample[{name}]: the kernel's random bits differ from the plain version's")
+        if not torch.equal(noise[1], S.uniform_of_bits(bits, ddt)):
+            fail(f"sample[{name}]: the kernel's uniforms differ from the plain version's")
+        if mode == "split" and not torch.equal(kw["keys"].view(torch.int32),
+                                               kw_ref["keys"].view(torch.int32)):
+            fail(f"sample[{name}]: the kernel's split key differs")
+        want = torch.argmax(scores, dim=-1).to(torch.int32)
+        gap = S.top_two_gap(scores)
+        differ = (got != want).nonzero().flatten().tolist()
+        for row in differ:
+            print(f"sample[{name}]: row {row} token {int(got[row])} != plain "
+                  f"{int(want[row])}, top-two gap {float(gap[row]):.3e} (tolerance "
+                  f"{SAMPLE_NEAR_TIE:.3e})", flush=True)
+            if float(gap[row]) > SAMPLE_NEAR_TIE:
+                fail(f"sample[{name}]: row {row} parts from the plain version outside "
+                     "a near-tie")
+            err = max(err, float(scores[row, want[row]] - scores[row, got[row]]))
+        print(f"sample[{name}]: R={r} V={v} {str(ldt)[6:]} logits, {str(ddt)[6:]} "
+              f"draw, top_k={k}: bits and uniforms bit-exact ({r * v} each), tokens "
+              f"{r - len(differ)} of {r} equal; smallest top-two gap "
+              f"{float(gap.min()):.3e}", flush=True)
+        timed_args[name] = (logits, inv_t, ddt, make, kth)
+    out = {}
+    for name in ("static bf16", "continuous f32 top-k"):
+        logits, inv_t, ddt, make, kth = timed_args[name]
+        kw = make()
+
+        def draw():
+            return sample_cuda(logits, inv_t, ddt, kth=kth, **kw)
+
+        # queued behind a sleep: the wrapper's host time (allocations, the
+        # ctypes call) is hidden, as it is inside a CUDA graph
+        ms = queued_ms(draw, 100)
+        paced = cuda_ms(draw, 200)
+        host = host_us(draw, 1000)
+        plain = cuda_ms(lambda: S.sample_ref(logits, inv_t, ddt, kth=kth, **kw), 5,
+                        warmup=1)
+        probs = torch.softmax(logits.float() * inv_t, dim=-1)
+        multi = queued_ms(lambda: torch.multinomial(probs, 1), 100)
+        ops, nbytes = sample_work(r, v, logits.element_size())
+        bnd, by = bound_ms(nbytes, ops)
+        print(f"sample[{name}]: kernel_ms={ms:.6f} (queued; back to back "
+              f"{paced:.6f}, host {host:.1f} us a call) plain_ms={plain:.6f} "
+              f"library_ms=null (no PyTorch call draws jax.random's tokens; "
+              f"torch.multinomial over the softmax, the engines' draw before: "
+              f"{multi:.6f} ms queued) int_ops={ops} bytes={nbytes} bound_ms={bnd:.6f} "
+              f"({by})", flush=True)
+        out.setdefault("main", dict(ms=ms, plain_ms=plain, library_ms=None,
+                                    bound_ms=bnd, bound_by=by, max_abs_err=err))
+    del logits32, timed_args, noise
+    torch.cuda.empty_cache()
+    return out["main"]
+
+
+def sampled_serving_phase(engine, prompts, greedy_tokens, card: str):
+    """yi-6b at full size (the served engine's weights, bf16), sampled:
+    the static engine (seed ``SAMPLE_SEED``, temperature
+    ``SAMPLE_TEMPERATURE``) eager and graph in turns, then the continuous
+    engine (top-k ``SAMPLE_TOP_K``, request seeds from ``SAMPLE_SEED``)
+    eager and graph in turns; tokens identical across each engine's four
+    runs (:func:`decode_alternation`, which prints tokens/s and ITL), and
+    not the greedy ones.  The sampler's launch count is set to 0 just
+    before and read just after: one launch a first token (continuous), an
+    eager step, and each capture's warm-up and captured step (3); replays
+    launch none.  Returns ``(sampler launches, flash_attention
+    launches)``."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.sample.kernel import sample_cuda
+    from repro_torch.serve.engine import Engine
+
+    t0 = time.perf_counter()
+    scfg = dataclasses.replace(engine.scfg, greedy=False,
+                               temperature=SAMPLE_TEMPERATURE, seed=SAMPLE_SEED)
+    engines = {m: Engine(engine.cfg, engine.model, scfg, device="cuda", decode=m)
+               for m in ("eager", "graph")}
+    seen, eager_steps = [], []
+
+    def run(eng):
+        out = eng.generate(prompts)
+        seen.append([r.token_ids for r in out])
+        if eng.decode == "eager":
+            eager_steps.append(out[0].steps)
+        return out, out[0].decode_s, len(out) * out[0].steps, "decode", None
+
+    fa0 = flash_attention_cuda.launches
+    sample_cuda.launches = 0
+    decode_alternation("yi-6b sampled", engines, run, card)
+    static_launches = sample_cuda.launches
+    want = sum(eager_steps) + 3 * engines["graph"].captures
+    if static_launches != want:
+        fail(f"sampled static serving: {static_launches} sampler launches, want {want}")
+    same = sum(a == b for ra, rb in zip(seen[0], greedy_tokens) for a, b in zip(ra, rb))
+    total = sum(len(r) for r in seen[0])
+    if same == total:
+        fail("sampled static serving gave the greedy tokens")
+    del engines
+    torch.cuda.empty_cache()
+    rates = continuous_alternation("yi-6b continuous sampled", engine.cfg, engine.model,
+                                   prompts, card, sampled=True)
+    launches = sample_cuda.launches
+    work = rates["work"]
+    want = static_launches + work["prefills"] + work["eager_steps"] + 3 * work["captures"]
+    if launches != want:
+        fail(f"sampled serving: {launches} sampler launches, want {want} "
+             f"({work})")
+    print(f"sampled serving[yi-6b]: sampler launches {launches} (static "
+          f"{static_launches}, continuous {launches - static_launches}); static "
+          f"tokens equal to greedy {same} of {total}; "
+          f"{time.perf_counter() - t0:.1f} s; card: {card}", flush=True)
+    return launches, flash_attention_cuda.launches - fa0
+
+
 def corpus_prompts(work: Path, lengths) -> list:
     """Prompts cut from the funnel corpus's records: the i-th starts at the
     i-th record's id line and runs ``lengths[i]`` bytes (records are ASCII)."""
@@ -1395,18 +1589,25 @@ def static_alternation(label: str, graph_engine, prompts, card: str) -> dict:
     return rates
 
 
-def continuous_alternation(label: str, cfg, model, prompts, card: str) -> dict:
-    """:func:`decode_alternation` of greedy ``ContinuousEngine``s on one
-    model: an eager one and a graph one, each with its own pool and the
-    prefix cache off (a suffix prefill would change bf16 rounding), the
-    ``CONT_SLOTS`` prompts at once, so every lane decodes.  ITL from the
-    engine's own windows (host clock)."""
+def continuous_alternation(label: str, cfg, model, prompts, card: str,
+                           sampled: bool = False) -> dict:
+    """:func:`decode_alternation` of ``ContinuousEngine``s on one model,
+    greedy (profiled after the turns) or ``sampled`` (the request seeds
+    ``SAMPLE_SEED + i``, temperature ``SAMPLE_TEMPERATURE``, top-k
+    ``SAMPLE_TOP_K``): an eager one and a graph one, each with its own pool
+    and the prefix cache off (a suffix prefill would change bf16 rounding),
+    the ``CONT_SLOTS`` prompts at once, so every lane decodes.  ITL from
+    the engine's own windows (host clock).  The rates carry the engines'
+    prefills, eager steps and captures under ``"work"``."""
     from repro_torch.launch.serve import paged_spec
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.scheduler import ContinuousEngine
 
     spec = paged_spec(CONT_MAX_LEN, CONT_BLOCK, CONT_SLOTS, prefix_cache=False)
     scfg = ServeConfig(max_new_tokens=SERVE_NEW_TOKENS, max_len=spec.max_len)
+    if sampled:
+        scfg = dataclasses.replace(scfg, greedy=False, temperature=SAMPLE_TEMPERATURE,
+                                   top_k=SAMPLE_TOP_K)
     engines = {m: ContinuousEngine(cfg, model, spec, scfg, prefix_cache=False,
                                    device="cuda", decode=m)
                for m in ("eager", "graph")}
@@ -1414,7 +1615,10 @@ def continuous_alternation(label: str, cfg, model, prompts, card: str) -> dict:
     def run(eng):
         eng.reset_slo()
         t0 = time.perf_counter()
-        out = eng.generate(prompts)
+        futs = [eng.submit(p, lead=False, seed=SAMPLE_SEED + i)
+                for i, p in enumerate(prompts)]
+        eng._maybe_lead()
+        out = [f.result() for f in futs]
         wall = time.perf_counter() - t0
         slo = eng.slo_ms()
         return (out, wall, sum(len(r.token_ids) for r in out),
@@ -1422,9 +1626,13 @@ def continuous_alternation(label: str, cfg, model, prompts, card: str) -> dict:
                 (slo["itl_p50_ms"], slo["itl_p99_ms"], "the engine's ITL window"))
 
     rates = decode_alternation(label, engines, run, card)
-    profile_spans(lambda: engines["eager"].generate(prompts),
-                  ("ContinuousEngine.prefill", "ContinuousEngine.decode"), card,
-                  f"{label} eager")
+    if not sampled:
+        profile_spans(lambda: engines["eager"].generate(prompts),
+                      ("ContinuousEngine.prefill", "ContinuousEngine.decode"), card,
+                      f"{label} eager")
+    eager, graph = engines["eager"].stats, engines["graph"]
+    rates["work"] = {"prefills": eager.prefills + graph.stats.prefills,
+                     "eager_steps": eager.steps, "captures": graph.captures}
     for m, eng in engines.items():
         drain_and_check(eng, f"{label} {m}")
     del engines
@@ -1442,28 +1650,33 @@ def profile_spans(run, names, card: str, label: str) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name not in names and not getattr(e, "is_user_annotation", False)]
+    # the raw (kineto) events, times in us: ``prof.events()`` would build a
+    # Python call tree over them at about 60 us an event, which for a
+    # moonshot decode (230,000 device events and their host ops) is minutes
+    raw = prof.profiler.kineto_results.events()
+    device = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3) for e in raw
+              if e.device_type() == DeviceType.CUDA and e.name() not in names
+              and not e.is_user_annotation()]
     for name in names:
-        spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                       if e.name == name and e.device_type == DeviceType.CPU)
+        spans = sorted((e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                       for e in raw
+                       if e.name() == name and e.device_type() == DeviceType.CPU)
         starts = [a for a, _ in spans]
         inside = []
-        for e in device:
-            i = bisect.bisect_right(starts, e.time_range.start) - 1
-            if i >= 0 and e.time_range.start < spans[i][1]:
-                inside.append(e)
+        for ev in device:
+            i = bisect.bisect_right(starts, ev[1]) - 1
+            if i >= 0 and ev[1] < spans[i][1]:
+                inside.append(ev)
         if not inside:
             print(f"lm_profile[{label}][{name}]: the profiler saw no device events in "
                   "it: busy share not measured", flush=True)
             continue
         wall = sum(b - a for a, b in spans)
-        busy = sum(e.time_range.elapsed_us() for e in inside)
+        busy = sum(d for _, _, d in inside)
         per_kernel: dict = {}
-        for e in inside:
-            t, n = per_kernel.get(e.name, (0, 0))
-            per_kernel[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        for kernel, _, d in inside:
+            t, n = per_kernel.get(kernel, (0, 0))
+            per_kernel[kernel] = (t + d, n + 1)
         tops = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:5]
         top = "; ".join(f"{k[:60]} {t / 1e3:.3f} ms x{n}" for k, (t, n) in tops)
         print(f"lm_profile[{label}][{name}]: {len(spans)} spans, wall {wall / 1e3:.3f} "
@@ -2992,6 +3205,7 @@ def main() -> None:
         attention_case(case, args.seed)
     ssd = ssd_scan_case(SSD_PREFILL, args.seed)
     ssd_scan_case(SSD_LONG, args.seed)
+    smp = sample_case(args.seed)
     ssd_scan_backward_case(args.seed)
     fa_bwd = attention_backward_case(FA_TRAIN, args.seed)
     attention_backward_case(FA_TRAIN_WINDOW, args.seed)
@@ -3026,6 +3240,9 @@ def main() -> None:
         chunked_decode_reading(engine, corpus_prompts(Path(work), SERVE_LENGTHS), card)
         fa_cont = continuous_serving_phase(Path(work), engine,
                                            static_runs[0]["token_ids"], card)
+        sample_launches, fa_sampled = sampled_serving_phase(
+            engine, corpus_prompts(Path(work), SERVE_LENGTHS),
+            static_runs[0]["token_ids"], card)
         mesh = one_card_mesh()
         fa_mesh = mesh_serving_phase(Path(work), engine, static_runs, mesh, card)
         # no group stays alive through the unsharded phases; (b) and (c) make
@@ -3079,12 +3296,13 @@ def main() -> None:
                    for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "hash_mix",
                              "sorted_probe")}
     launches["hash_mix"] += digest_launches + train_total["hash_mix"]
-    launches["flash_attention"] = (fa_static + fa_cont + fa_moe + fa_whisper
+    launches["flash_attention"] = (fa_static + fa_cont + fa_sampled + fa_moe + fa_whisper
                                    + train_total["flash_attention"] + fa_mesh + fa_ep)
     launches["ssd_scan"] += train_total["ssd_scan"] + ssd_mesh
     print(f"launches by path: hash_mix serve_index {hm_serving} + digest_ids "
           f"{digest_launches} + training's batch verify {train_total['hash_mix']}; "
           f"flash_attention yi-6b static {fa_static} + yi-6b continuous {fa_cont} + "
+          f"yi-6b sampled {fa_sampled} + "
           f"moonshot static and continuous {fa_moe} + whisper-small static "
           f"{fa_whisper} + training "
           f"{train_total['flash_attention']} + the mesh phase's yi-6b serving {fa_mesh} "
@@ -3092,8 +3310,8 @@ def main() -> None:
           f"training {train_total['ssd_scan']} + the mesh trainer {ssd_mesh}; "
           f"sorted_probe in training "
           f"{train_total['sorted_probe']} (the launcher's index is in memory); "
-          f"flash_attention backward kernel in training {train_total['flash_attention_bwd']}",
-          flush=True)
+          f"flash_attention backward kernel in training {train_total['flash_attention_bwd']}; "
+          f"sample in yi-6b's sampled serving {sample_launches}", flush=True)
     yi = trained["yi-6b"]
     est = fa_bwd["ms"] * 4 / yi["step_ms"]
     print(f"attention backward share of the yi-6b training step (4 layers, step_ms "
@@ -3128,6 +3346,11 @@ def main() -> None:
              replaces="the gradient of src/repro/kernels/flash_attention/kernel.py:97 "
                       "(jax.grad of its chunked XLA path)",
              launches=train_total["flash_attention_bwd"], **fa_bwd),
+        dict(name="sample", route="cuda",
+             source="src/repro_torch/csrc/sample.cu",
+             replaces="no Pallas kernel: XLA's fusion of jax.random.categorical in "
+                      "src/repro/serve/engine.py:110 and src/repro/serve/scheduler.py:213",
+             launches=sample_launches, **smp),
     ]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

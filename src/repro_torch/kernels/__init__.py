@@ -20,10 +20,15 @@ ops) and ``ssd_scan/ops.py`` the scan's (backward by the same kernel).
                      online softmax (the LM prefill).
 * ``ssd_scan``     — the Mamba2 SSD inter-chunk state scan (the SSM and
                      hybrid prefill).
+* ``sample``       — a categorical draw per row of logits with
+                     ``jax.random``'s threefry bits (the sampled decode
+                     step); no Pallas kernel: the reference leaves it to
+                     XLA's fusion.
 """
 
 from .flash_attention.ops import flash_attention
 from .hash_mix.ops import hash_mix, hash_mix_u64
+from .sample.ops import sample
 from .sorted_probe.ops import sorted_probe
 from .ssd_scan.ops import ssd_scan
 from .tanimoto.ops import tanimoto_topk

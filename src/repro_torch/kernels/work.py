@@ -3,7 +3,7 @@ counter of it.
 
 :func:`attention_work`, :func:`attention_bwd_work` and :func:`scan_work`
 give the floating-point operations a kernel (or the attention's backward)
-must do and the bytes it must move (each input read once, each output
+must do (:func:`sample_work` the integer operations of the sampler) and the bytes it must move (each input read once, each output
 written once) for one call.  ``chip_smoke.py`` prices a
 kernel's bound from them, and the dry-run (``launch/dryrun.py``) counts
 the same work for every call the kernel gets on its ``meta`` branch, so a
@@ -23,8 +23,14 @@ import functools
 import threading
 from typing import Dict, Iterator, Optional, Tuple
 
-__all__ = ["attention_bwd_work", "attention_work", "counting", "record", "scan_work",
-           "visible_pairs"]
+__all__ = ["SAMPLE_INT_OPS", "attention_bwd_work", "attention_work", "counting",
+           "record", "sample_work", "scan_work", "visible_pairs"]
+
+# 32-bit integer operations per logit of ``sample``: threefry-2x32's 20
+# rounds of add, rotate and xor (60), the two words' first key addition
+# (2) and five key injections of three adds (15), then the counter's add,
+# the xor of the two words and the mantissa's shift and or (4)
+SAMPLE_INT_OPS = 81
 
 
 @functools.lru_cache(maxsize=256)
@@ -71,6 +77,13 @@ def scan_work(bh: int, c: int, p: int, n: int) -> Tuple[int, int]:
     decays read."""
     numel = bh * c * p * n
     return 2 * numel, 2 * numel * 4 + bh * c * 4
+
+
+def sample_work(r: int, v: int, itemsize: int) -> Tuple[int, int]:
+    """(32-bit integer operations, bytes) of one ``sample``: the threefry
+    bits of every logit; the ``(R, V)`` logits read once and the ``(R,)``
+    int32 tokens written."""
+    return SAMPLE_INT_OPS * r * v, itemsize * r * v + 4 * r
 
 
 class _Counters(threading.local):

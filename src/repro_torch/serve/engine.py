@@ -23,9 +23,18 @@ makes them, and the prefill and every decode step run under
 texts and gets the same tokens.  The caller's model is left as it was.
 
 Greedy decoding takes the first maximal logit, as ``jnp.argmax`` does, so
-on float32 weights it gives the reference's tokens.  Sampling draws from
-the engine's ``torch.Generator``, seeded with ``ServeConfig.seed`` at every
-``generate``; its draws are not ``jax.random``'s.
+on float32 weights it gives the reference's tokens.  Sampling keeps the
+reference's key chain: each ``generate`` starts from ``prng_key(
+ServeConfig.seed)`` (a ``(2,)`` uint32 key on the device), and each decode
+step splits it, ``key, sub = split(key)``, and draws
+``categorical(sub, logits / temperature)`` over the whole ``(B, V)`` batch
+in the logits' dtype, through :func:`repro_torch.kernels.sample.ops.sample`
+(the CUDA kernel on the card, which also writes the new key).  The draws
+are ``jax.random``'s bit for bit up to the last ulp of a ``log``
+(:mod:`repro_torch.serve.sampling`), so on float32 weights the sampled
+tokens are the reference's too.  The first token is the prefill's argmax,
+as the reference's is.  Over a mesh every rank draws from the whole
+logits with the same key.
 
 How a decode step runs (``Engine(..., decode=)``), the counterpart of the
 reference's one jitted step with donated buffers:
@@ -37,10 +46,11 @@ reference's one jitted step with donated buffers:
   B, ``max_len``, the token budget, greedy or sampled,
   ``flags.DECODE_CHUNKED`` as read at capture, and the cache's shapes.
   Each ``generate`` copies its prefill's cache into the static one (every
-  row, so nothing of an earlier request or of the warm-up survives); the
-  warm-up before a capture runs on a side stream over zeroed buffers.  A
-  sampled step registers the engine's generator with the graph, which
-  draws as the eager step does.  A capture that fails raises.
+  row, so nothing of an earlier request or of the warm-up survives) and
+  its first key into the static key; the warm-up before a capture runs on
+  a side stream over zeroed buffers.  A sampled step reads and advances
+  the static key on the device, so the graph holds no generator and reads
+  nothing back.  A capture that fails raises.
 * ``"static"``: the same static-buffer step, run op by op (what the graph
   replays, checkable on the CPU).
 * ``"eager"`` (the default on the CPU and over a mesh): the step as
@@ -66,6 +76,7 @@ from ..configs.base import ModelConfig
 from ..data.tokenizer import ByteTokenizer
 from ..device import DeviceLike, resolve_device
 from ..dist.logical import use_mesh, whole
+from ..kernels.sample.ops import sample
 from ..launch.sharding import (
     batch_shardings,
     distribute,
@@ -77,6 +88,7 @@ from ..launch.sharding import (
 from ..models.moe import monitored
 from ..models.registry import build_model
 from ..models.specs import cache_specs
+from .sampling import prng_key
 
 __all__ = ["Engine", "GenerationResult", "ServeConfig"]
 
@@ -120,8 +132,9 @@ class _StaticDecode:
     """The buffers a captured decode step reads and writes, allocated once
     per capture key: the cache, the current tokens ``cur (B, 1)``, the
     positions ``pos (B,)``, the step index ``t (1,)``, the token buffer
-    ``out_buf (B, n_new)``, the emitted counts ``n_emit (B,)`` and the EOS
-    flags ``done (B,)``; ``graph`` once captured."""
+    ``out_buf (B, n_new)``, the emitted counts ``n_emit (B,)``, the EOS
+    flags ``done (B,)`` and the sampling key ``key (2,)`` uint32; ``graph``
+    once captured."""
 
     def __init__(self, cache, b: int, n_new: int, pad_id: int):
         self.cache = tree_map(torch.zeros_like, cache)
@@ -132,12 +145,17 @@ class _StaticDecode:
         self.out_buf = torch.full((b, n_new), pad_id, dtype=torch.long, device=dev)
         self.n_emit = torch.zeros((b,), dtype=torch.long, device=dev)
         self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.key = torch.zeros((2,), dtype=torch.uint32, device=dev)
         self.pad_id = pad_id
         self.graph: Optional[torch.cuda.CUDAGraph] = None
 
-    def start(self, cache, cur: torch.Tensor, pos: torch.Tensor) -> None:
-        """A new request batch: its prefill's cache and first tokens."""
+    def start(self, cache, cur: torch.Tensor, pos: torch.Tensor,
+              key: Optional[torch.Tensor]) -> None:
+        """A new request batch: its prefill's cache, first tokens and (when
+        it samples) key."""
         _copy_into(self.cache, cache)
+        if key is not None:
+            self.key.copy_(key)
         self.cur.copy_(cur)
         self.pos.copy_(pos)
         self.t.zero_()
@@ -196,7 +214,6 @@ class Engine:
             model = distribute_params(module_copy(model), mesh, param_specs)
         self.model = model
         self.tok = ByteTokenizer()
-        self._gen = torch.Generator(device=self.device)
         # bytes of the KV cache that the last ``generate``'s prefill allocated
         # (the encoder-decoder family's cross cache included)
         self.kv_cache_bytes = 0
@@ -235,22 +252,31 @@ class Engine:
             lens[i] = len(p)
         return toks, lens
 
-    def _step(self, cur, pos, cache, out_buf, n_emit, done, t):
+    def _step(self, cur, pos, cache, out_buf, n_emit, done, t, key):
         """Emit ``cur`` at column ``t``, update the EOS flags, decode one
         token: all on the device, no host transfer."""
         out_buf[:, t] = torch.where(done, self.tok.pad_id, cur[:, 0])
         n_emit += (~done).long()
         done |= cur[:, 0] == self.tok.eos_id
         logits, cache = self.api.decode_step(self.model, cur, pos, cache)
-        return self._next(logits)[:, None], pos + 1, cache
+        return self._next(logits, key, cur[:, 0])[:, None], pos + 1, cache
 
-    def _next(self, logits: torch.Tensor) -> torch.Tensor:
-        """The next token of each row (B,): the first maximal logit, or a
-        draw from the engine's generator."""
+    def _next(self, logits: torch.Tensor, key: Optional[torch.Tensor],
+              like: torch.Tensor) -> torch.Tensor:
+        """The next token of each row (B,), laid out as ``like``: the first
+        maximal logit, or the reference's draw under ``split(key)[1]``,
+        ``key`` advanced in place to ``split(key)[0]``."""
         if self.scfg.greedy:
             return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits.float() / self.scfg.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        tok = sample(whole(logits), self.scfg.temperature, key=key,
+                     split_key=True).long()
+        mesh = getattr(like, "device_mesh", None)
+        if mesh is None:
+            return tok
+        from torch.distributed.tensor import DTensor, Replicate
+
+        return DTensor.from_local(tok, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False).redistribute(mesh, like.placements)
 
     def _static_step(self, st: _StaticDecode) -> None:
         """:meth:`_step` over the static buffers, every write in place: the
@@ -261,7 +287,7 @@ class Engine:
         st.done |= cur == self.tok.eos_id
         logits, cache = self.api.decode_step(self.model, st.cur, st.pos, st.cache)
         _copy_into(st.cache, cache)
-        st.cur.copy_(self._next(logits)[:, None])
+        st.cur.copy_(self._next(logits, st.key, cur)[:, None])
         st.pos += 1
         st.t += 1
 
@@ -295,8 +321,6 @@ class Engine:
         torch.cuda.current_stream(self.device).wait_stream(side)
         st.t.zero_()
         graph = torch.cuda.CUDAGraph()
-        if not self.scfg.greedy:
-            graph.register_generator_state(self._gen)
         with torch.cuda.graph(graph):
             self._static_step(st)
         return graph
@@ -326,7 +350,7 @@ class Engine:
     def generate(self, texts: List[str]) -> List[GenerationResult]:
         batch, lens = self.inputs(texts)
         b = len(texts)
-        self._gen.manual_seed(self.scfg.seed)
+        key = None if self.scfg.greedy else prng_key(self.scfg.seed, self.device)
 
         self._sync()
         t0 = time.perf_counter()
@@ -350,10 +374,9 @@ class Engine:
         st = None
         if self.decode != "eager" and not monitored(self.model):
             st = self._static_for(cache, b, n_new)
-            st.start(cache, cur, pos)
+            st.start(cache, cur, pos, key)
             del cache
             out_buf, n_emit, done = st.out_buf, st.n_emit, st.done
-            self._gen.manual_seed(self.scfg.seed)  # the warm-up drew from it
 
         t1 = time.perf_counter()
         steps = 0
@@ -365,7 +388,7 @@ class Engine:
                 if st is None:
                     with use_mesh(self.mesh):
                         cur, pos, cache = self._step(cur, pos, cache, out_buf,
-                                                     n_emit, done, step)
+                                                     n_emit, done, step, key)
                 elif st.graph is not None:
                     st.graph.replay()
                     self.replays += 1

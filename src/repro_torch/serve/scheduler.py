@@ -31,29 +31,32 @@ decouples a sequence's lifetime from the batch's:
   VLM (image tokens offset every position), as in the reference.
 
 Where the reference jits its steps and donates the cache, the paged
-functions update the pool tensors in place, and the greedy decode step
-(``decode_step_paged`` and the argmax over every lane) runs as the static
-engine's does (``ContinuousEngine(..., decode=)``): ``"graph"``, the
-default on a CUDA engine, captures it once per capture key (``max_slots``,
-the block-table width, ``flags.DECODE_CHUNKED``) as one
-``torch.cuda.CUDAGraph`` over static lane buffers (tokens, positions,
-block tables, next tokens) and replays it; ``"static"`` runs the same
+functions update the pool tensors in place, and the decode step
+(``decode_step_paged`` and the next token of every lane, greedy or
+sampled) runs as the static engine's does (``ContinuousEngine(...,
+decode=)``): ``"graph"``, the default on a CUDA engine, captures it once
+per capture key (``max_slots``, the block-table width,
+``flags.DECODE_CHUNKED``) as one ``torch.cuda.CUDAGraph`` over static lane
+buffers (tokens, positions, block tables, the sampled path's seeds and
+token indices, next tokens) and replays it; ``"static"`` runs the same
 step op by op; ``"eager"`` uploads fresh tensors each step.  The host
 copies the lanes in before each step (the block tables only when they
 changed) and reads the ``(max_slots,)`` next tokens back after it; the
 emit/evict bookkeeping stays on the host.  The warm-up before a capture
-runs over zeroed lanes, whose writes land in the trash block.  The
-sampled path (``greedy=False``) stays eager: it draws from one generator
-per request token and reads each lane's draw back.
+runs over zeroed lanes, whose writes land in the trash block.
 
 Emission matches the static engine's greedy path: the first token is the
 argmax of the prefill logits at the true last prompt position, decode
 feeds token *k* at position ``len + k - 1``, and a sequence stops after
-EOS or ``max_new_tokens`` tokens.  With ``greedy=False`` a request samples
-(temperature, ``ServeConfig.top_k``) from a generator seeded by (request
-seed, token index) only, so its samples depend on its prompt and seed,
-never on its lane or on what else is batched; the draws are torch's, not
-``jax.random``'s.
+EOS or ``max_new_tokens`` tokens.  With ``greedy=False`` token *k* of a
+request (the first at *k* = 0) is the reference's draw: the logits cast
+to float32 and divided by the temperature, cut to ``ServeConfig.top_k``,
+then ``categorical`` under the key ``fold_in(prng_key(seed), k)`` of the
+request's uint32 seed, through :func:`repro_torch.kernels.sample.ops.sample`
+(the CUDA kernel on the card, which derives each lane's key itself).  So a
+request's samples depend on its prompt and seed only, never on its lane or
+on what else is batched, and they are ``jax.random``'s bit for bit up to
+the last ulp of a ``log`` (:mod:`repro_torch.serve.sampling`).
 
 Per-request SLO accounting records time to first token (submit → first
 token) and inter-token latency (consecutive decode steps) in bounded
@@ -79,9 +82,10 @@ from .. import flags
 from ..configs.base import ModelConfig
 from ..data.tokenizer import ByteTokenizer
 from ..device import DeviceLike, resolve_device
+from ..kernels.sample.ops import sample
 from ..models.registry import build_model
 from .engine import GenerationResult, ServeConfig
-from .kvcache import BlockManager, PagedCacheSpec, PrefixIndex, _mix64, blocks_for
+from .kvcache import BlockManager, PagedCacheSpec, PrefixIndex, blocks_for
 
 __all__ = ["ContinuousEngine", "ContinuousStats", "EngineClosed"]
 
@@ -92,13 +96,6 @@ class EngineClosed(RuntimeError):
 
 # Bounded windows for TTFT / inter-token latency percentiles.
 _SLO_WINDOW = 8192
-
-
-def sample_seed(seed: int, index: int) -> int:
-    """The generator seed of token ``index`` of a request seeded ``seed``:
-    a function of the two alone (splitmix64, 63 bits for
-    ``torch.Generator.manual_seed``)."""
-    return _mix64(_mix64(seed & 0xFFFFFFFF) ^ index) >> 1
 
 
 @dataclasses.dataclass
@@ -135,10 +132,10 @@ class _Seq:
 
     __slots__ = (
         "future", "prompt_len", "budget", "tokens", "t_submit",
-        "prefill_s", "t_first", "t_last", "fed", "seed",
+        "prefill_s", "t_first", "t_last", "fed",
     )
 
-    def __init__(self, future, prompt_len, budget, t_submit, prefill_s, now, seed):
+    def __init__(self, future, prompt_len, budget, t_submit, prefill_s, now):
         self.future: "Future[GenerationResult]" = future
         self.prompt_len = prompt_len
         self.budget = budget
@@ -148,7 +145,6 @@ class _Seq:
         self.t_first = now
         self.t_last = now
         self.fed = 0            # decode steps this sequence was fed into
-        self.seed = seed
 
 
 class _Request:
@@ -167,11 +163,11 @@ class ContinuousEngine:
     for ``model`` (whose parameters must already be on ``device``).
 
     Greedy by default; with ``greedy=False`` each request samples under
-    its own generators (:func:`sample_seed`).  ``generate(texts)`` is a
-    thin batch wrapper: enqueue all, lead once, gather in order.
-    ``decode`` picks how a greedy decode step runs (see the module notes):
-    ``"graph"``, ``"static"`` or ``"eager"``; None takes ``"graph"`` on a
-    greedy CUDA engine, else ``"eager"``.
+    its own keys, ``fold_in(prng_key(seed), token index)``.
+    ``generate(texts)`` is a thin batch wrapper: enqueue all, lead once,
+    gather in order.  ``decode`` picks how a decode step runs (see the
+    module notes): ``"graph"``, ``"static"`` or ``"eager"``; None takes
+    ``"graph"`` on a CUDA engine, else ``"eager"``.
     """
 
     def __init__(
@@ -204,12 +200,9 @@ class ContinuousEngine:
                     f"{self.device}"
                 )
         if decode is None:
-            decode = ("graph" if self.device.type == "cuda" and scfg.greedy
-                      else "eager")
+            decode = "graph" if self.device.type == "cuda" else "eager"
         if decode not in ("graph", "static", "eager"):
             raise ValueError(f"decode={decode!r}: one of graph, static, eager")
-        if decode != "eager" and not scfg.greedy:
-            raise ValueError("the sampled decode step runs eagerly: decode='eager'")
         if decode == "graph" and self.device.type != "cuda":
             raise ValueError(f"decode='graph' needs a CUDA engine, not {self.device}")
         self.decode = decode
@@ -239,18 +232,23 @@ class ContinuousEngine:
         self._temp = float(max(scfg.temperature, 1e-6))
         self._top_k = int(scfg.top_k)
 
-        # Leader-only decode state (no lock: exactly one leader at a time).
+        # Leader-only decode state (no lock: exactly one leader at a time);
+        # each lane's sampling seed and the index of its next token
         self._cur = np.zeros((spec.max_slots, 1), np.int64)
         self._pos = np.zeros((spec.max_slots,), np.int64)
+        self._seeds = np.zeros((spec.max_slots,), np.uint32)
+        self._idx = np.zeros((spec.max_slots,), np.uint32)
         self._active: Dict[int, _Seq] = {}
         self._free_slots: List[int] = list(range(spec.max_slots - 1, -1, -1))
         self._tables_dev = self._upload(self._mgr.tables)
         self._tables_dirty = False
-        # static lanes of the greedy step ("graph" and "static"), and the
-        # captured step and its key
+        # static lanes of the step ("graph" and "static"), and the captured
+        # step and its key
         lanes = spec.max_slots
         self._lane_cur = torch.zeros((lanes, 1), dtype=torch.long, device=self.device)
         self._lane_pos = torch.zeros((lanes,), dtype=torch.long, device=self.device)
+        self._lane_seed = torch.zeros((lanes,), dtype=torch.int32, device=self.device)
+        self._lane_idx = torch.zeros((lanes,), dtype=torch.int32, device=self.device)
         self._lane_next = torch.zeros((lanes,), dtype=torch.long, device=self.device)
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_key: Optional[tuple] = None
@@ -267,6 +265,11 @@ class ContinuousEngine:
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.device)
+
+    def _upload_u32(self, a: np.ndarray) -> torch.Tensor:
+        """uint32 values as the int32 tensor of their bits."""
+        return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(
+            self.device)
 
     # -- client surface ------------------------------------------------------
 
@@ -524,47 +527,49 @@ class ContinuousEngine:
             # publish every full-block prefix: decode writes land in the
             # partial/fresh tail blocks, never in published ones
             self._index.publish(prompt, self._mgr.slot_blocks(slot), n)
-        seq = _Seq(req.future, n, budget, req.t_submit, prefill_s, now, req.seed)
+        seq = _Seq(req.future, n, budget, req.t_submit, prefill_s, now)
         seq.tokens.append(first)
         self._cur[slot, 0] = first
         self._pos[slot] = self._offset + n
+        self._seeds[slot] = req.seed & 0xFFFFFFFF
+        self._idx[slot] = 1
         self._active[slot] = seq
         self._tables_dirty = True
         self.stats.peak_active = max(self.stats.peak_active, len(self._active))
 
-    def _sample(self, logits: torch.Tensor, seed: int, index: int) -> int:
-        """Token ``index`` of a request seeded ``seed`` from its (V,) logits:
-        temperature, top-k, then a draw from a generator seeded by
-        :func:`sample_seed` alone."""
-        lg = logits.float() / self._temp
-        if self._top_k > 0:
-            kth = torch.topk(lg, min(self._top_k, lg.shape[-1])).values[-1]
-            lg = torch.where(lg < kth, float("-inf"), lg)
-        gen = torch.Generator(device=lg.device)
-        gen.manual_seed(sample_seed(seed, index))
-        return int(torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=gen))
+    def _next(self, logits: torch.Tensor, seeds: Optional[torch.Tensor],
+              index: Optional[torch.Tensor]) -> torch.Tensor:
+        """The next token of each lane of ``(S, V)`` logits: the first
+        maximal logit, or the reference's draw (float32, temperature,
+        top-k) under the key ``fold_in(prng_key(seed), index)``."""
+        if self.scfg.greedy:
+            return torch.argmax(logits, dim=-1)
+        return sample(logits, self._temp, seeds=seeds, index=index,
+                      top_k=self._top_k, dtype=torch.float32)
 
     def _first_token(self, logits: torch.Tensor, seed: int) -> int:
         """First emitted token from the prefill logits (V,): greedy, or
         sampled at token index 0."""
         if self.scfg.greedy:
             return int(torch.argmax(logits))
-        return self._sample(logits, seed, 0)
+        seeds = self._upload_u32(np.array([seed & 0xFFFFFFFF]))
+        return int(self._next(logits[None], seeds, torch.zeros_like(seeds))[0])
 
     def _lane_step(self) -> None:
-        """The greedy step over the static lanes, every write in place:
-        the step that a CUDA graph captures."""
+        """The step over the static lanes, every write in place: the step
+        that a CUDA graph captures."""
         logits, _ = self.api.decode_step_paged(
             self.model, self._lane_cur, self._lane_pos, self._tables_dev,
             self._cache, self.spec.block_size)
-        self._lane_next.copy_(torch.argmax(logits, dim=-1))
+        self._lane_next.copy_(self._next(logits, self._lane_seed, self._lane_idx))
 
     def _capture(self) -> None:
         """Capture :meth:`_lane_step` over zeroed lanes (position 0 of block
         0, the trash block), after a warm-up on a side stream.  Raises if
         the step cannot be captured."""
         t0 = time.perf_counter()
-        for lane in (self._lane_cur, self._lane_pos, self._tables_dev):
+        for lane in (self._lane_cur, self._lane_pos, self._tables_dev,
+                     self._lane_seed, self._lane_idx):
             lane.zero_()
         self._tables_dirty = True
         side = torch.cuda.Stream(self.device)
@@ -582,7 +587,7 @@ class ContinuousEngine:
         self.captures += 1
 
     def _decode_lanes(self) -> np.ndarray:
-        """One greedy step over the static lanes → (S,) next tokens."""
+        """One step over the static lanes → (S,) next tokens."""
         key = (self.spec.max_slots, self._tables_dev.shape[1], flags.DECODE_CHUNKED)
         if self.decode == "graph" and key != self._graph_key:
             self._capture()
@@ -592,6 +597,9 @@ class ContinuousEngine:
             self._tables_dirty = False
         self._lane_cur.copy_(torch.from_numpy(self._cur))
         self._lane_pos.copy_(torch.from_numpy(self._pos))
+        if not self.scfg.greedy:
+            self._lane_seed.copy_(torch.from_numpy(self._seeds.view(np.int32)))
+            self._lane_idx.copy_(torch.from_numpy(self._idx.view(np.int32)))
         if self.decode == "graph":
             self._graph.replay()
             self.replays += 1
@@ -612,14 +620,11 @@ class ContinuousEngine:
                     self.model, self._upload(self._cur), self._upload(self._pos),
                     self._tables_dev, self._cache, self.spec.block_size,
                 )
-                if self.scfg.greedy:
-                    # the one host sync per step: (S,) token ids
-                    nxt = torch.argmax(logits, dim=-1).cpu().numpy()
-                else:
-                    nxt = np.zeros((self.spec.max_slots,), np.int64)
-                    for slot, seq in self._active.items():
-                        nxt[slot] = self._sample(logits[slot], seq.seed,
-                                                 len(seq.tokens))
+                seeds = index = None
+                if not self.scfg.greedy:
+                    seeds, index = self._upload_u32(self._seeds), self._upload_u32(self._idx)
+                # the one host sync per step: (S,) token ids
+                nxt = self._next(logits, seeds, index).cpu().numpy()
         now = time.perf_counter()
         self.stats.steps += 1
         for slot, seq in list(self._active.items()):
@@ -636,6 +641,7 @@ class ContinuousEngine:
             else:
                 self._cur[slot, 0] = tok
                 self._pos[slot] += 1
+                self._idx[slot] = len(seq.tokens)
 
     def _evict(self, slot: int, seq: _Seq, now: float) -> None:
         self._mgr.release(slot)

@@ -40,11 +40,8 @@ from repro_torch.models.registry import build_model
 from repro_torch.models.weights import params_from_reference
 from repro_torch.serve import kvcache as TK
 from repro_torch.serve.engine import Engine, ServeConfig
-from repro_torch.serve.scheduler import (
-    ContinuousEngine,
-    EngineClosed,
-    sample_seed,
-)
+from repro_torch.serve.sampling import fold_in, prng_key
+from repro_torch.serve.scheduler import ContinuousEngine, EngineClosed
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 MAX_LEN, BS = 64, 8
@@ -597,8 +594,14 @@ def test_sampling_reproducible_by_seed_and_top_k_one_is_greedy():
     top1.close()
     greedy.close()
     assert ServeConfig().greedy and ServeConfig().top_k == 0
-    assert sample_seed(3, 1) == sample_seed(3, 1) != sample_seed(3, 2)
-    assert sample_seed(3, 1) != sample_seed(4, 1) and sample_seed(2**40, 0) < 2**63
+    # token k of a request seeded s draws under fold_in(PRNGKey(s), k)
+    def key(s, k):
+        return fold_in(prng_key(s & 0xFFFFFFFF), k).view(torch.int32).tolist()
+
+    assert key(3, 1) == key(3, 1) != key(3, 2)
+    assert key(3, 1) != key(4, 1) and key(2**40, 0) == key(0, 0)
+    want = jax.random.fold_in(jax.random.PRNGKey(np.uint32(3)), 1)
+    assert key(3, 1) == np.asarray(want).view(np.int32).tolist()
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "mamba2-1.3b", "jamba-1.5-large-398b"])

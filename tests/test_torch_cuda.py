@@ -990,8 +990,8 @@ def test_decode_graph_tokens_equal_eager_on_the_card(cuda, arch):
 
 
 def test_decode_graph_sampled_tokens_equal_eager_on_the_card(cuda):
-    """The sampled step with the engine's generator registered with the
-    graph draws what the eager step draws for the same seed."""
+    """The sampled step, its key a static buffer that the kernel splits,
+    draws in the graph what the eager step draws for the same seed."""
     from repro_torch.serve.engine import Engine, ServeConfig
 
     cfg, _, model = _smoke_lm(cuda)
@@ -1027,6 +1027,118 @@ def test_continuous_decode_graph_equals_eager_on_the_card(cuda):
         if mode is None:
             assert eng.decode == "graph" and eng.captures == 1
             assert eng.replays == eng.stats.steps > 0
+        eng.close(drain=True)
+        eng.check()
+    assert out[None] == out["eager"]
+
+
+SAMPLE_CASES = [  # (R, V, top_k): yi-6b's vocabulary at B = 8, a lane, odd V
+    (8, 64000, 0), (8, 64000, 40), (1, 64000, 0), (3, 50257, 7), (5, 1001, 1),
+    (64, 32000, 0),
+]
+
+
+# the kernel and the plain version may order two scores apart only where
+# they lie within a few float32 ulps: the card's logf and PyTorch's log
+# may differ by an ulp (relative to max(1, |score|); see ``top_two_gap``)
+SAMPLE_NEAR_TIE = 4 * 2.0**-23
+
+
+@pytest.mark.parametrize("logits_dtype,draw", [("float32", "float32"),
+                                               ("bfloat16", "bfloat16"),
+                                               ("bfloat16", "float32")])
+@pytest.mark.parametrize("r,v,top_k", SAMPLE_CASES)
+def test_sample_kernel_matches_plain(cuda, r, v, top_k, logits_dtype, draw):
+    """The kernel against its plain version on the same card tensors, in
+    the three ways the engines draw (one key split in place, the static
+    engine's; per-lane seeds and indices with top-k, the continuous
+    engine's; per-row keys): the new key bit for bit, tokens equal except
+    at a near-tie of the plain version's scores, two launches equal."""
+    from repro_torch.kernels.sample import ref as S
+    from repro_torch.kernels.sample.kernel import sample_cuda
+
+    ldt, ddt = getattr(torch, logits_dtype), getattr(torch, draw)
+    g = torch.Generator(device=cuda).manual_seed(r * v + top_k)
+    logits = (torch.randn((r, v), generator=g, device=cuda) * 3).to(ldt)
+    inv_t = S.inv_temperature(0.8, ddt)
+    kth = S.top_k_threshold(logits, top_k, inv_t, ddt) if top_k else None
+    seeds = torch.randint(-2**31, 2**31, (r,), generator=g, device=cuda,
+                          dtype=torch.int32)
+    index = torch.randint(0, 100, (r,), generator=g, device=cuda, dtype=torch.int32)
+    keys = S.split(S.prng_key(7, cuda), r)
+    for make in (lambda: dict(keys=S.prng_key(3, cuda), split_key=True),
+                 lambda: dict(seeds=seeds, index=index), lambda: dict(keys=keys)):
+        kw, kw_ref = make(), make()
+        before = sample_cuda.launches
+        noise = (torch.empty((r, v), dtype=torch.int32, device=cuda),
+                 torch.empty((r, v), device=cuda))
+        got = sample_cuda(logits, inv_t, ddt, kth=kth, noise=noise, **kw)
+        bits = S.sample_bits(r, v, cuda, **make())
+        scores = S.sample_scores(logits, inv_t, ddt, kth=kth, **kw_ref)
+        torch.cuda.synchronize()
+        assert sample_cuda.launches == before + 1
+        assert torch.equal(noise[0].long() & S.M32, bits)   # bit for bit
+        assert torch.equal(noise[1], S.uniform_of_bits(bits, ddt))
+        if kw.get("split_key"):  # the new key, written by the kernel
+            assert torch.equal(kw["keys"].view(torch.int32),
+                               kw_ref["keys"].view(torch.int32))
+        want = torch.argmax(scores, dim=-1).to(torch.int32)
+        differ = got != want
+        assert (S.top_two_gap(scores)[differ] <= SAMPLE_NEAR_TIE).all()
+        assert torch.equal(sample_cuda(logits, inv_t, ddt, kth=kth, **make()), got)
+
+
+def test_sample_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.sample import ref as S
+    from repro_torch.kernels.sample.kernel import sample_cuda
+
+    lg = torch.zeros((4, 100), device=cuda)
+    key = S.prng_key(0, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sample_cuda(lg.half(), 1.0, torch.float32, keys=key)
+    with pytest.raises(ValueError, match="contiguous"):
+        sample_cuda(lg.t(), 1.0, torch.float32, keys=key)
+    with pytest.raises(ValueError, match="keys, or seeds"):
+        sample_cuda(lg, 1.0, torch.float32)
+    with pytest.raises(ValueError, match="one \\(2,\\) key"):
+        sample_cuda(lg, 1.0, torch.float32, keys=S.split(key, 4), split_key=True)
+    with pytest.raises(TypeError, match="seeds"):
+        sample_cuda(lg, 1.0, torch.float32, seeds=torch.zeros(4, device=cuda),
+                    index=torch.zeros(4, dtype=torch.int32, device=cuda))
+
+
+def test_continuous_sampled_decode_graph_equals_eager_on_the_card(cuda):
+    """Sampled continuous serving through the captured lane step (seeds and
+    token indices in static lanes, top-k): the eager step's tokens through
+    evictions and admissions; every step a replay, the sampler launched
+    once a first token and once an eager step."""
+    from repro_torch.kernels.sample.kernel import sample_cuda
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.kvcache import PagedCacheSpec
+    from repro_torch.serve.scheduler import ContinuousEngine
+
+    cfg, _, model = _smoke_lm(cuda)
+    spec = PagedCacheSpec(n_blocks=40, block_size=16, max_slots=3, max_blocks_per_seq=6)
+    texts = GRAPH_PROMPTS[0] + GRAPH_PROMPTS[1][:2]
+    budgets = [3, 12, 5, 8, 2, 9]
+    scfg = ServeConfig(max_new_tokens=12, max_len=96, greedy=False, temperature=0.9,
+                       top_k=50)
+    out = {}
+    for mode in ("eager", None):
+        eng = ContinuousEngine(cfg, model, spec, scfg, device=cuda, decode=mode)
+        futs = [eng.submit(t, n, lead=False, seed=i) for i, (t, n) in
+                enumerate(zip(texts, budgets))]
+        before = sample_cuda.launches
+        eng._maybe_lead()
+        out[mode] = [f.result(timeout=300).token_ids for f in futs]
+        if mode is None:
+            assert eng.decode == "graph" and eng.captures == 1
+            assert eng.replays == eng.stats.steps > 0
+            # a first token each, and the capture's warm-up (2) and captured
+            # step (1); replays launch nothing
+            assert sample_cuda.launches - before == eng.stats.prefills + 3
+        else:
+            assert sample_cuda.launches - before == eng.stats.prefills + eng.stats.steps
         eng.close(drain=True)
         eng.check()
     assert out[None] == out["eager"]

@@ -11,7 +11,7 @@ different prompts at one key (stale buffers would show) and at a second
 batch size (a second key).  ``ContinuousEngine(decode="static")`` (static
 lanes, block tables refreshed in place) must equal its eager paged step
 through evictions and admissions that rewrite the tables.  Also: the
-sampled static step draws as the eager one does, a step under
+sampled static steps of both engines draw as the eager ones do, a step under
 ``models.moe.monitor`` runs eagerly, and the mode checks.
 """
 
@@ -144,32 +144,52 @@ def test_decode_mode_checks():
     eng = ContinuousEngine(t_cfg, model, spec, _scfg(), device="cpu")
     assert eng.decode == "eager"
     eng.close()
-    with pytest.raises(ValueError, match="sampled"):
-        ContinuousEngine(t_cfg, model, spec, _scfg(greedy=False), device="cpu",
-                         decode="static")
+    sampled = ContinuousEngine(t_cfg, model, spec, _scfg(greedy=False), device="cpu",
+                               decode="static")
+    assert sampled.decode == "static"
+    sampled.close()
     with pytest.raises(ValueError, match="CUDA"):
         ContinuousEngine(t_cfg, model, spec, _scfg(), device="cpu", decode="graph")
 
 
-def test_continuous_static_lanes_equal_eager_through_evictions():
-    """Six ragged requests through three lanes: finished sequences are
-    evicted and queued ones admitted into their lanes, which rewrites the
-    block tables while the others decode."""
-    _, t_cfg, _, model = _weights("yi-6b")
+def _continuous_through_evictions(model, t_cfg, scfg):
+    """Six ragged requests through three lanes, eager and static: finished
+    sequences are evicted and queued ones admitted into their lanes, which
+    rewrites the block tables (and the lanes' seeds and token indices)
+    while the others decode.  Returns each mode's tokens."""
     spec = PagedCacheSpec(n_blocks=33, block_size=8, max_slots=3, max_blocks_per_seq=10)
     texts = PROMPTS_A + PROMPTS_C
     budgets = [3, 10, 5, 8, 2, 9]
     out = {}
     for mode in ("eager", "static"):
-        eng = ContinuousEngine(t_cfg, model, spec, _scfg(), device="cpu",
+        eng = ContinuousEngine(t_cfg, model, spec, scfg, device="cpu",
                                prefix_cache=False, decode=mode)
-        futs = [eng.submit(t, n, lead=False) for t, n in zip(texts, budgets)]
+        futs = [eng.submit(t, n, lead=False, seed=20 + i)
+                for i, (t, n) in enumerate(zip(texts, budgets))]
         eng._maybe_lead()
         out[mode] = [f.result(timeout=300).token_ids for f in futs]
         assert eng.stats.completed == len(texts) and eng.stats.peak_active == 3
         eng.check()
         eng.close()
     assert out["static"] == out["eager"]
+    return texts, budgets, out
+
+
+def test_continuous_static_lanes_equal_eager_through_evictions():
+    _, t_cfg, _, model = _weights("yi-6b")
+    texts, budgets, out = _continuous_through_evictions(model, t_cfg, _scfg())
     static = Engine(t_cfg, model, _scfg(), device="cpu", decode="eager")
     for t, n, got in zip(texts, budgets, out["static"]):
         assert got == _tokens(static, [t])[0][:n]
+
+
+def test_continuous_sampled_static_lanes_equal_eager_through_evictions():
+    """The sampled lane step (each lane's key from its request's seed and
+    token index, top-k) under ``"static"`` draws what the eager step draws,
+    through the same evictions and admissions; the tokens are not the
+    greedy ones."""
+    _, t_cfg, _, model = _weights("yi-6b")
+    scfg = _scfg(greedy=False, temperature=0.9, top_k=40)
+    _, _, out = _continuous_through_evictions(model, t_cfg, scfg)
+    _, _, greedy = _continuous_through_evictions(model, t_cfg, _scfg())
+    assert out["static"] != greedy["static"]

@@ -86,6 +86,7 @@ def _result(runs, group, name):
 def test_engine_sharded_equals_unsharded(runs, group, arch):
     _, res = _result(runs, group, f"engine/{arch}")
     assert res["tokens"] == res["want"]
+    assert res.get("sampled") == res.get("sampled_want")
     assert res["prefill_rel"] <= RTOL, res["prefill_rel"]
     assert res["step_rel"] <= RTOL, res["step_rel"]
     assert res["original_untouched"]

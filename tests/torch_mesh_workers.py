@@ -83,7 +83,15 @@ def engine_check(mesh, arch: str) -> Dict[str, object]:
                                       sbatch["lengths"], cache)
             logits, step = logits.full_tensor(), step.full_tensor()
     placements = sorted({str(tuple(p.placements)) for p in sharded.model.parameters()})
-    return {"tokens": got, "want": want, "prefill_rel": _rel(logits, ref),
+    sampled = {}
+    if arch == "yi-6b":  # every rank draws from the whole logits with one key
+        hot = dataclasses.replace(scfg, greedy=False, temperature=0.8, seed=3)
+        sampled = {"sampled": [r.token_ids for r in Engine(
+                       cfg, model, hot, device="cpu", mesh=mesh,
+                       param_specs=param_specs(model)).generate(PROMPTS)],
+                   "sampled_want": [r.token_ids for r in Engine(
+                       cfg, model, hot, device="cpu").generate(PROMPTS)]}
+    return {"tokens": got, "want": want, "prefill_rel": _rel(logits, ref), **sampled,
             "step_rel": _rel(step, ref_step), "placements": placements,
             "original_untouched": all(type(p) is torch.nn.Parameter
                                       and not hasattr(p.data, "placements")
