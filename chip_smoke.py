@@ -18,13 +18,17 @@
    verify batch (4,096 x 128) and a slice 4 bytes off 16-byte alignment,
    each on its route, warm and cold.  Outputs must match bit for bit.
    ``tanimoto`` top-k against its plain version,
-   scores as raw float32 bits and rows exactly: ``pubchem``, a plane of
-   176,929,690 random 1,024-bit fingerprints (22.6 GB, generated on the
-   card in chunks) screened by 64 queries at k = 32; ``ties``, 4,194,304
-   rows drawn from 4,096 distinct fingerprints, shuffled, screened by 256
-   queries (rows of the plane, all-zero queries, random ones) at k = 1,
-   32, 1,024 and 2,048, and on its first 5,000 rows at k = 8,192 (k > N:
-   pads, and the stage-1 lists in global memory).  ``flash_attention``
+   scores as raw float32 bits and rows exactly, one launch a call, each k
+   timed warm beside its bound (``kernels/work.py`` ``tanimoto_work``) and
+   its share of it, with the plan's route, queries a block and slices:
+   ``pubchem``, a plane of 176,929,690 random 1,024-bit fingerprints
+   (22.6 GB, generated on the card in chunks) screened by 64 queries at
+   k = 32 and 1,024; ``ties``, 4,194,304 rows drawn from 4,096 distinct
+   fingerprints, shuffled, screened by 256 queries (rows of the plane,
+   all-zero queries, random ones) at k = 1, 32, 1,024 and 2,048, and on
+   its first 5,000 rows at k = 8,192 (k > N: pads, the sort route);
+   ``served``, a 100,000-row plane at Q = 4 (a request) and k = 8, 32 and
+   1,024, timed queued behind a sleep and on the host per call.  ``flash_attention``
    against its plain version in bfloat16 at the LM prefill's shape (yi-6b:
    B = 8, Hq = 32, Hkv = 4, S = 2,048, D = 128, causal) and at gemma3-12b's
    (B = 1, Hq = 16, Hkv = 8, S = 4,096, D = 256, window 1,024), both on
@@ -313,6 +317,9 @@ HASHED_MISMATCHES = 405
 FP_WORDS = 32              # 1,024-bit fingerprints (the store's default)
 SIM_QUERIES = 64           # pubchem case: a service batch of queries
 SIM_K = 32                 # the service's similar_top_k
+SIM_K_LARGE = 1024         # a chemist's "1,000 nearest neighbours" request
+SERVE_QUERIES = 4          # served tanimoto: a request's queries (the
+SERVE_KS = (8, 32, 1024)   # service's load shape) at these k, on SERVE_PLANE rows
 TIES_ROWS = 1 << 22        # ties case: 4,194,304 rows ...
 TIES_DISTINCT = 4096       # ... drawn from 4,096 distinct fingerprints
 TIES_QUERIES = 256
@@ -623,11 +630,14 @@ def random_u32(g, shape, dev) -> torch.Tensor:
                                 dtype=torch.int64)).contiguous()
 
 
-def tanimoto_case(name, q, db, dc, ks, reps, popc_rate):
-    """Hold tanimoto's kernel to its plain version, bit for bit, at each k;
-    time both at the first k."""
-    from repro_torch.kernels.tanimoto.kernel import tanimoto_topk_cuda
+def tanimoto_case(name, q, db, dc, ks, reps, popc_rate, served=False):
+    """Hold tanimoto's kernel to its plain version, bit for bit, at each k,
+    one launch a call; time each k warm (or, ``served``, queued behind a
+    sleep, and on the host per call) beside its bound, with the plan it
+    took.  Returns the first k's numbers."""
+    from repro_torch.kernels.tanimoto.kernel import plan, tanimoto_topk_cuda
     from repro_torch.kernels.tanimoto.ref import row_counts, tanimoto_topk_ref
+    from repro_torch.kernels.work import tanimoto_work
 
     qc = row_counts(q)
     n, w = db.shape
@@ -635,7 +645,11 @@ def tanimoto_case(name, q, db, dc, ks, reps, popc_rate):
     chunk = max(1 << 16, PLAIN_ELEMS // nq)  # bounds the plain version's blocks
     out = None
     for k in ks:
-        (s_k, i_k), ms = timed(lambda: tanimoto_topk_cuda(q, db, k, qc, dc))
+        before = tanimoto_topk_cuda.launches
+        s_k, i_k = tanimoto_topk_cuda(q, db, k, qc, dc)
+        torch.cuda.synchronize()
+        if tanimoto_topk_cuda.launches != before + 1:
+            fail(f"tanimoto {name} k={k}: the call did not count one launch")
         (s_r, i_r), plain = timed(
             lambda: tanimoto_topk_ref(q, db, k, qc, dc, db_chunk=chunk))
         bits_k, bits_r = s_k.view(torch.int32), s_r.view(torch.int32)
@@ -645,26 +659,25 @@ def tanimoto_case(name, q, db, dc, ks, reps, popc_rate):
                  f"({bad} outputs)")
         err = float((s_k - s_r).abs().max())
         ties = int((s_k[:, 1:] == s_k[:, :-1]).sum()) if k > 1 else 0
+        kernel = lambda: tanimoto_topk_cuda(q, db, k, qc, dc)  # noqa: E731
+        ms = queued_ms(kernel, reps) if served else cuda_ms(kernel, reps, warmup=1)
+        host = f" host_us={host_us(kernel, HOST_CALLS):.3f}" if served else ""
+        ops, nbytes = tanimoto_work(nq, n, w, k)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / popc_rate * 1e3
+        b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        p = plan(nq, n, w, k)
+        print(f"tanimoto[{name}]: N={n} W={w} Q={nq} k={k} bit-exact "
+              f"({ties} equal-score neighbours in the top-k); route={p.route} "
+              f"queries_per_block={p.qpb} slices={p.slices} width={p.width}; "
+              f"kernel_ms={ms:.6f} ({'queued' if served else 'warm'}){host} "
+              f"plain_ms={plain:.6f} library_ms=null bytes={nbytes} "
+              f"popcounts={ops} popc_per_s={popc_rate:.4g} bound_ms={b:.6f} ({by}) "
+              f"share_of_bound={b / ms:.4f}", flush=True)
         if out is None:
-            ms = cuda_ms(lambda: tanimoto_topk_cuda(q, db, k, qc, dc), reps,
-                         warmup=1)
-            nbytes = n * (4 * w + 4) + nq * (4 * w + 4) + nq * k * 8
-            ops = nq * n * w
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / popc_rate * 1e3
-            b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-            print(f"tanimoto[{name}]: N={n} W={w} Q={nq} k={k} bit-exact "
-                  f"({ties} equal-score neighbours in the top-k); "
-                  f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms=null "
-                  f"bytes={nbytes} popcounts={ops} popc_per_s={popc_rate:.4g} "
-                  f"bound_ms={b:.6f} ({by})", flush=True)
             out = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
                        bound_by=by, max_abs_err=err)
-        else:
-            print(f"tanimoto[{name}]: k={k} bit-exact ({ties} equal-score "
-                  f"neighbours); kernel_ms={ms:.6f} (one call) "
-                  f"plain_ms={plain:.6f}", flush=True)
-            out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
         del s_k, i_k, s_r, i_r, bits_k, bits_r
     return out
 
@@ -695,7 +708,8 @@ def tanimoto_phase(seed: int):
     print(f"tanimoto[pubchem]: plane {PUBCHEM} x {FP_WORDS} words "
           f"({PUBCHEM * (4 * FP_WORDS + 4)} bytes) made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    main = tanimoto_case("pubchem", q, db, dc, (SIM_K,), reps=3, popc_rate=rate)
+    main = tanimoto_case("pubchem", q, db, dc, (SIM_K, SIM_K_LARGE), reps=3,
+                         popc_rate=rate)
     del db, dc, q, rows
     torch.cuda.empty_cache()
 
@@ -718,6 +732,16 @@ def tanimoto_phase(seed: int):
                   reps=3, popc_rate=rate)
     del base, pick, db, dc, q, qi, head
     torch.cuda.empty_cache()
+
+    # -- served: a similarity request against a store shard's plane --------
+    db = random_u32(g, (SERVE_PLANE, FP_WORDS), dev)
+    dc = row_counts(db)
+    q = random_u32(g, (SERVE_QUERIES, FP_WORDS), dev)
+    q.view(torch.int32)[: SERVE_QUERIES // 2] = db.view(torch.int32)[
+        torch.randint(0, SERVE_PLANE, (SERVE_QUERIES // 2,), generator=g, device=dev)]
+    tanimoto_case("served", q, db, dc, SERVE_KS, reps=100, popc_rate=rate,
+                  served=True)
+    del db, dc, q
     return main
 
 

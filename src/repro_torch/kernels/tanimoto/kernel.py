@@ -4,44 +4,86 @@ Replaces the Pallas kernel ``tanimoto_blocks_pallas`` / ``_tanimoto_kernel``
 of ``src/repro/kernels/tanimoto/kernel.py`` (wrapped there by
 ``tanimoto_topk_pallas``).  What bounds it on an H100: the operations —
 ``Q * N * W`` population counts, which the card retires at 16 per clock per
-SM, take longer than reading the ``N * (4W + 4)`` bytes of the plane.
-Design: stage 1 gives each warp a group of queries and a slice of rows and
-keeps a sorted top-k per (query, slice) in shared memory, or, for a k
-whose lists do not fit there even at one query per warp, in the global
-stage-1 scratch; stage 2 merges the slices' lists with one warp per query.
-Every comparison is on ``(score, row)``, so the result is bit-exact with
-the plain version whatever the slicing.  See the source for the details.
+SM, take longer than reading the ``N * (4W + 4)`` bytes of the plane.  The
+top-k has to cost little beside them at every k.
+
+Design: every candidate is one 64-bit key, ``score bits << 32 |
+(0x7FFFFFFF - row)`` (:func:`~.ref.pack_keys`), so that a larger key is a
+better candidate.  :func:`plan` picks one of two routes before the launch:
+
+* ``"filter"`` (``k < N`` and ``k <= 8,192``): stage 1 gives a block of 8
+  warps ``qpb`` queries and a slice of rows; a row enters a query's buffer
+  only if its key beats the query's threshold, and a full buffer is sorted
+  and folded into the kept best ``width`` keys, which raises the threshold.
+  The slices share their thresholds through device memory.  Stage 2 merges
+  the slices' sorted runs, a block per query.  Slices are bounded so that
+  ``slices * k <= N / 8`` (the first k rows of a slice all enter).
+* ``"sort"`` (``k >= N`` or ``k > 8,192``): every key of a chunk of queries
+  goes to scratch and is sorted (bitonic), and the first k are written.
+
+What was dropped (the first design): a sorted list per (query, warp) with one
+shifting insertion per candidate, slices sized only to fill the card, a
+k-round serial merge, and insertion into device memory for a large k: at
+4,194,304 rows and k = 1,024 that cost 64x the bound.  Every comparison is
+on the key, so the result is bit-exact with the plain version whatever the
+slicing.  See the source for the details.
 
 Any ``k >= 1`` is answered, as the reference answers it (``k > N`` pads
 with ``(-1.0, -1)``).  Rows are int32, so the plane has fewer than
-``2**31`` rows.
+``2**31 - 1`` rows.
 
-``tanimoto_topk_cuda.launches`` counts the launches of the kernel
-(thread-safe).
+``tanimoto_topk_cuda.launches`` counts the calls that launched the kernels
+(thread-safe): one a call, whatever the route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..build import count_launch, load
 from .ref import PAD_INDEX, PAD_SCORE, row_counts
 
-__all__ = ["plan", "tanimoto_topk_cuda"]
+__all__ = ["Plan", "filter_smem", "plan", "tanimoto_topk_cuda"]
 
-_WARPS = 4                  # kWarps: warps (slices) per stage-1 block
-_QPW = (8, 4, 1)            # queries per warp the source is built for
+_FRESH = 512                # kMinFresh: fresh keys a query's buffer holds,
+_MAX_FRESH = 4096           # and up to this for kept lists of 512 keys and up
+_QPB = (8, 4, 2, 1)         # queries per block the source is built for
 _SMEM_LIMIT = 232_448       # dynamic shared memory a block may use (sm_90)
-_TARGET_WARPS = 132 * 64    # stage-1 warps to aim for: 64 per SM of an H100
-_MIN_SLICE_ROWS = 1024      # and at least max(this, 16 k) rows per slice
-_MAX_SLICES = 12_288        # stage 2 keeps one int per slice in 48 KB
-_SCRATCH_BYTES = 1 << 30    # stage-1 lists: (Q, slices, k) x 8 bytes, at
-                            # most this or 4 slices' worth
+_FILTER_K_MAX = 8192        # largest k of the filter route: its stage 2
+                            # holds two sorted lists of 8,192 keys
+_FILL_SHARE = 8             # slices * k <= N / 8
+_MIN_SLICE_ROWS = 1024      # a slice is at least 4 rounds of its block
+_TARGET_BLOCKS = 132 * 16   # filter blocks to aim for: 16 per SM of an H100
+_MERGE_SMEM = 1 << 17       # stage 2: lists of `width` keys in 128 KB
+_SORT_CHUNK = 8192          # kSortChunk: keys a sort block holds
+_SCRATCH_BYTES = 1 << 30    # sort route: keys of at least one query
+_MAX_GRID_Y = 65_535        # queries a sort pass launches side by side
 
 _FN = None
+
+
+class Plan(NamedTuple):
+    """One launch's plan.  ``route`` "filter": ``qpb`` queries a block,
+    ``slices`` slices of ``rows_per_slice`` rows, kept lists of ``width``
+    keys (a power of 2 >= k), buffers of ``fresh`` keys, stage 2 folding
+    ``slots`` lists at a time.
+    ``route`` "sort": ``width`` keys a query (a power of 2 >= N),
+    ``query_chunk`` queries a pass.  ``smem``: the largest dynamic shared
+    memory a block of the plan uses; ``scratch_bytes``: device scratch."""
+
+    route: str
+    qpb: int
+    slices: int
+    rows_per_slice: int
+    width: int
+    fresh: int
+    slots: int
+    query_chunk: int
+    smem: int
+    scratch_bytes: int
 
 
 def _fn():
@@ -49,7 +91,8 @@ def _fn():
     if _FN is None:
         f = load("tanimoto").tanimoto_topk_launch
         f.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
         )
         f.restype = ctypes.c_int
         _FN = f
@@ -60,35 +103,58 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(nq: int, n: int, w: int, k: int) -> Tuple[int, int, int, bool]:
-    """``(queries per warp, slices, rows per slice, lists in global)`` for
-    one launch.
+def _pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
 
-    Queries per warp: the largest of 8, 4, 1 that the batch fills and
-    whose stage-1 block fits in shared memory.  Where not even one query
-    per warp fits (k above about 7,260 at W = 32), one query per warp with
-    its lists in the global stage-1 scratch.  Slices: enough warps to fill
-    the card, but each slice at least ``max(1024, 16 k)`` rows (a slice's
-    list costs ``k`` inserts to fill) and the stage-1 lists at most 1 GiB;
-    a multiple of 4 (one slice per warp of a block).
+
+def filter_smem(qpb: int, w: int, width: int, fresh: int = _FRESH) -> int:
+    """Dynamic shared memory of a filter block (``filter_smem`` of the
+    source): query words, then kept and fresh keys, thresholds, the
+    buffers' fill and the queries' bit counts."""
+    return _cdiv(qpb * w * 4, 16) * 16 + qpb * (width + fresh) * 8 + qpb * 16
+
+
+def plan(nq: int, n: int, w: int, k: int) -> Plan:
+    """The route and shapes of one launch (see the module docstring).
+
+    Filter: queries a block, the most of 8, 4, 2, 1 that the batch fills
+    and whose block leaves room for two on an SM; with kept lists of 512
+    keys and up, the largest buffer (up to 4,096 keys) that still does, so
+    that a large k folds less often.  Slices: enough blocks to fill the
+    card (16 per SM), but ``slices * k <= N / 8`` and at least 1,024 rows a
+    slice.  Sort: the whole plane's keys of as many queries as 1 GiB holds
+    (at least one).
     """
-    if 4 * w > _SMEM_LIMIT:
+    if 4 * w + filter_smem(1, 0, 32) > _SMEM_LIMIT:
         raise ValueError(f"W={w} words of queries do not fit shared memory")
-    in_global = False
-    for qpw in _QPW:
-        if (qpw <= nq or qpw == 1) and 4 * qpw * w + 8 * _WARPS * qpw * k <= _SMEM_LIMIT:
-            break
-    else:
-        qpw, in_global = 1, True
-    groups = _cdiv(nq, qpw)
-    slices = min(
-        _cdiv(_TARGET_WARPS, groups),
-        _cdiv(n, max(_MIN_SLICE_ROWS, 16 * k)),
-        _SCRATCH_BYTES // (8 * nq * k),
-        _MAX_SLICES,
-    )
-    slices = _cdiv(max(1, slices), _WARPS) * _WARPS
-    return qpw, slices, _cdiv(n, slices), in_global
+    if k < n and k <= _FILTER_K_MAX:
+        width = max(32, _pow2(k))
+        fits = [c for c in _QPB if (c <= nq or c == 1)
+                and filter_smem(c, w, width) <= _SMEM_LIMIT]
+        if not fits:
+            raise ValueError(f"W={w}, k={k}: no filter block fits shared memory")
+        budget = _SMEM_LIMIT // 2
+        qpb = next((c for c in fits if filter_smem(c, w, width) <= budget), None)
+        if qpb is None:
+            qpb, budget = fits[-1], _SMEM_LIMIT
+        fresh = _FRESH
+        while (width >= 512 and fresh < _MAX_FRESH
+               and filter_smem(qpb, w, width, 2 * fresh) <= budget):
+            fresh *= 2
+        groups = _cdiv(nq, qpb)
+        slices = max(1, min(_cdiv(_TARGET_BLOCKS, groups),
+                            n // (_FILL_SHARE * k),
+                            n // _MIN_SLICE_ROWS))
+        slots = 2
+        while slots < slices and 2 * slots * width * 8 <= _MERGE_SMEM:
+            slots *= 2
+        smem = max(filter_smem(qpb, w, width, fresh), slots * width * 8)
+        return Plan("filter", qpb, slices, _cdiv(n, slices), width, fresh, slots,
+                    nq, smem, 8 * nq * (1 + slices * k))
+    width = max(2, _pow2(n))
+    chunk = min(nq, _MAX_GRID_Y, max(1, _SCRATCH_BYTES // (8 * width)))
+    smem = max(4 * w, 8 * min(width, _SORT_CHUNK))
+    return Plan("sort", 1, 1, n, width, 0, 0, chunk, smem, 8 * chunk * width)
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, dev) -> None:
@@ -130,7 +196,7 @@ def tanimoto_topk_cuda(
         raise ValueError("fingerprints must have at least one word")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if n >= 2**31:
+    if n >= 2**31 - 1:
         raise ValueError(f"plane of {n} rows overflows the int32 row index")
     qc = row_counts(q_fps) if q_counts is None else q_counts
     dc = row_counts(db_fps) if db_counts is None else db_counts
@@ -147,19 +213,19 @@ def tanimoto_topk_cuda(
         )
     out_s = torch.empty((qn, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((qn, k), dtype=torch.int32, device=dev)
-    qpw, slices, rows_per_slice, in_global = plan(qn, n, w, k)
-    ss = torch.empty((qn, slices, k), dtype=torch.float32, device=dev)
-    si = torch.empty((qn, slices, k), dtype=torch.int32, device=dev)
+    p = plan(qn, n, w, k)
+    scratch = torch.empty(p.scratch_bytes // 8, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(
             db_fps.data_ptr(), dc.data_ptr(), q_fps.data_ptr(), qc.data_ptr(),
-            n, w, qn, k, slices, rows_per_slice, qpw, int(in_global),
-            ss.data_ptr(), si.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            stream,
+            n, w, qn, k, 0 if p.route == "filter" else 1, p.qpb, p.slices,
+            p.rows_per_slice, p.width, p.fresh, p.slots, p.query_chunk,
+            scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), stream,
         )
     if err != 0:
-        raise RuntimeError(f"tanimoto kernel launch failed: cudaError {err}")
+        raise RuntimeError(
+            f"tanimoto kernel launch failed ({p.route} route): cudaError {err}")
     count_launch(tanimoto_topk_cuda)
     return out_s, out_i
 

@@ -10,6 +10,12 @@ reference package's ``tanimoto_topk_ref``, bit for bit:
 * order ``(score desc, row asc)``: equal scores keep the earlier row;
 * fewer than ``k`` rows pad the tail with ``(-1.0, -1)``.
 
+The CUDA kernel compares candidates as one 64-bit key each,
+:func:`pack_keys`: scores are ``>= 0``, so their float32 bits order as
+integers, and ``score bits << 32 | (2**31 - 1 - row)`` orders by (score
+desc, row asc) when sorted descending; :func:`keys_topk` is that order's
+top-k, the kernel's selection in plain PyTorch.
+
 PyTorch on the CPU has no uint32 ``+``, ``>>``, ``<`` and no popcount, so,
 as in ``hash_mix/ref.py``, the words are widened to int64 through an int32
 view (values in ``[0, 2**32)``) and counted with a SWAR popcount.
@@ -32,6 +38,8 @@ from ..hash_mix.ref import from_u32
 __all__ = [
     "PAD_INDEX",
     "PAD_SCORE",
+    "keys_topk",
+    "pack_keys",
     "row_counts",
     "tanimoto_scores_ref",
     "tanimoto_topk_naive",
@@ -170,6 +178,30 @@ def tanimoto_topk_ref(
     rows = torch.where(pad, torch.full_like(run_i, PAD_INDEX), run_i)
     scores = torch.where(pad, torch.full_like(run_s, PAD_SCORE), run_s)
     return scores, rows.to(torch.int32)
+
+
+def pack_keys(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """int64 keys ``score bits << 32 | (2**31 - 1 - row)`` of float32
+    scores ``>= 0`` and int32 rows ``< 2**31 - 1``: a larger key is a better
+    candidate, and every key of a real row is ``>= 1`` (0 is the kernel's
+    empty slot).  Below ``2**63``, so int64 compares them as unsigned."""
+    bits = scores.to(torch.float32).view(torch.int32).to(torch.int64)
+    return (bits << 32) | (_PAD_ROW - rows.to(torch.int64))
+
+
+def keys_topk(keys: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(scores (Q, k) float32, rows (Q, k) int32)`` of the ``k`` largest
+    of ``(Q, M)`` :func:`pack_keys` keys, in descending key order; 0 keys and
+    the tail past ``M`` are pads ``(-1.0, -1)``."""
+    qn, m = keys.shape
+    top = torch.sort(keys, dim=1, descending=True).values[:, :k]
+    if m < k:
+        top = torch.cat([top, top.new_zeros((qn, k - m))], dim=1)
+    pad = top == 0
+    scores = (top >> 32).to(torch.int32).view(torch.float32)
+    rows = (_PAD_ROW - (top & 0xFFFFFFFF)).to(torch.int32)
+    return (torch.where(pad, torch.full_like(scores, PAD_SCORE), scores),
+            torch.where(pad, torch.full_like(rows, PAD_INDEX), rows))
 
 
 def tanimoto_topk_naive(

@@ -3,8 +3,10 @@ counter of it.
 
 :func:`attention_work`, :func:`attention_bwd_work` and :func:`scan_work`
 give the floating-point operations a kernel (or the attention's backward)
-must do (:func:`sample_work` the integer operations of the sampler) and the bytes it must move (each input read once, each output
-written once) for one call.  ``chip_smoke.py`` prices a
+must do (:func:`sample_work` the integer operations of the sampler,
+:func:`tanimoto_work` the population counts of the similarity top-k) and
+the bytes it must move (each input read once, each output written once)
+for one call.  ``chip_smoke.py`` prices a
 kernel's bound from them, and the dry-run (``launch/dryrun.py``) counts
 the same work for every call the kernel gets on its ``meta`` branch, so a
 kernel's work is reckoned one way whatever implements it.  The plain
@@ -24,7 +26,7 @@ import threading
 from typing import Dict, Iterator, Optional, Tuple
 
 __all__ = ["SAMPLE_INT_OPS", "attention_bwd_work", "attention_work", "counting",
-           "record", "sample_work", "scan_work", "visible_pairs"]
+           "record", "sample_work", "scan_work", "tanimoto_work", "visible_pairs"]
 
 # 32-bit integer operations per logit of ``sample``: threefry-2x32's 20
 # rounds of add, rotate and xor (60), the two words' first key addition
@@ -84,6 +86,14 @@ def sample_work(r: int, v: int, itemsize: int) -> Tuple[int, int]:
     bits of every logit; the ``(R, V)`` logits read once and the ``(R,)``
     int32 tokens written."""
     return SAMPLE_INT_OPS * r * v, itemsize * r * v + 4 * r
+
+
+def tanimoto_work(nq: int, n: int, w: int, k: int) -> Tuple[int, int]:
+    """(population counts, bytes) of one ``tanimoto`` top-k: every query
+    meets every row, W words each; the ``(N, W)`` plane and its ``(N,)``
+    int32 counts read once, the queries and their counts read, and the
+    ``(Q, k)`` float32 scores and int32 rows written."""
+    return nq * n * w, n * (4 * w + 4) + nq * (4 * w + 4) + nq * k * 8
 
 
 class _Counters(threading.local):

@@ -17,7 +17,7 @@ from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
 from repro_torch.kernels.hash_mix.ref import hash_mix_ref
 from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
 from repro_torch.kernels.sorted_probe.ref import sorted_probe_ref
-from repro_torch.kernels.tanimoto.kernel import tanimoto_topk_cuda
+from repro_torch.kernels.tanimoto.kernel import plan, tanimoto_topk_cuda
 from repro_torch.kernels.tanimoto.ref import tanimoto_topk_ref
 
 pytestmark = pytest.mark.cuda
@@ -180,11 +180,20 @@ def _tie_plane(rng, n, w, distinct):
     (300_000, 32, 4, 1024, 512),    # k = 1,024 over a tie flood
     (5_000, 2, 3, 1024, 100),       # k > N: pads
     (20_000, 3, 8, 16, 30),         # odd W
-    (300_000, 32, 6, 2048, 512),    # k = 2,048: lists in shared memory
-    (100_000, 32, 5, 8192, 512),    # k = 8,192: lists in global memory
-    (3_000, 32, 4, 8192, 100),      # global lists, k > N: pads
+    (300_000, 32, 6, 2048, 512),    # k = 2,048
+    (100_000, 32, 5, 8192, 512),    # k = 8,192: the filter route's largest k
+    (3_000, 32, 4, 8192, 100),      # k > N: pads, the sort route
+    (1_000_000, 32, 16, 1024, 4096),  # many slices sharing thresholds (ties)
+    (1_000_000, 32, 16, 2048, 4096),  # the same at k = 2,048, 4 queries a block
+    (40_000, 32, 3, 8193, 300),     # k = 8,193: the sort route, strides in
+                                    # device memory
+    (8_193, 32, 3, 8192, 300),      # k = 8,192 = N - 1: the filter route
+    (5_000, 32, 3, 4_999, 100),     # k = N - 1: the filter route, one slice
+    (5_000, 32, 3, 5_000, 100),     # k = N: the sort route
+    (20_000, 32, 2, 20_000, 300),   # k = N above 16,384: two global strides
 ])
 def test_tanimoto_kernel_matches_plain(cuda, n, w, q, k, distinct):
+    assert plan(q, n, w, k).route == ("filter" if k < n and k <= 8192 else "sort")
     rng = np.random.default_rng(n + w + k)
     db = _tie_plane(rng, n, w, distinct)
     qs = np.vstack([db[rng.integers(0, n, q - q // 3)],

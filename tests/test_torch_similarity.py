@@ -29,10 +29,13 @@ from repro.kernels.tanimoto.ops import tanimoto_topk_host as r_host
 from repro.kernels.tanimoto.ref import tanimoto_topk_naive as r_naive
 from repro.kernels.tanimoto.ref import tanimoto_topk_ref as r_ref
 from repro_torch.core.store import merge_similar_topk as t_merge
-from repro_torch.kernels.tanimoto.kernel import plan, tanimoto_topk_cuda
+from repro_torch.kernels.tanimoto.kernel import filter_smem, plan, tanimoto_topk_cuda
 from repro_torch.kernels.tanimoto.ops import tanimoto_topk, tanimoto_topk_host
 from repro_torch.kernels.tanimoto.ref import (
+    keys_topk,
+    pack_keys,
     row_counts,
+    tanimoto_scores_ref,
     tanimoto_topk_naive,
     tanimoto_topk_ref,
 )
@@ -214,22 +217,278 @@ def test_ops_dispatch_cpu_to_plain_and_wrapper_refuses_cpu():
     assert tanimoto_topk_cuda.launches == before
 
 
-@pytest.mark.parametrize("nq,n,w,k", [
+PLAN_CASES = [  # (queries, rows, words, k)
     (64, 176_929_690, 32, 32), (256, 4_194_304, 32, 1024), (1, 6250, 32, 32),
     (512, 6250, 32, 32), (3, 100, 1, 1024), (100_000, 10_000, 32, 1024),
     (256, 4_194_304, 32, 2048), (7, 300_000, 32, 7_260), (7, 300_000, 32, 7_261),
     (5, 100_000, 32, 8192), (3, 100, 32, 100_000), (1, 10, 1, 2**20),
-])
+    (64, 176_929_690, 32, 1024), (4, 100_000, 32, 8), (4, 100_000, 32, 1024),
+    (256, 5_000, 32, 8192), (5, 100_000, 32, 8193), (3, 5_000, 32, 4_999),
+    (3, 5_000, 32, 5_000), (2, 40_000, 32, 20_000), (100_000, 2_000, 32, 5_000),
+    (9, 1_000, 3, 1),
+]
+
+
+@pytest.mark.parametrize("nq,n,w,k", PLAN_CASES)
 def test_launch_plan_fits_the_kernel(nq, n, w, k):
-    qpw, slices, rows, in_global = plan(nq, n, w, k)
-    assert qpw in (1, 4, 8) and (qpw <= nq or qpw == 1)
-    smem_lists = 0 if in_global else 8 * 4 * qpw * k
-    assert 4 * qpw * w + smem_lists <= 232_448  # stage-1 shared memory
-    # lists go to global memory only where one query per warp cannot fit
-    assert in_global == (4 * w + 8 * 4 * k > 232_448)
-    assert not in_global or qpw == 1
-    assert slices % 4 == 0 and 4 <= slices <= 12_288
-    assert rows == -(-n // slices)
+    p = plan(nq, n, w, k)
+    assert p.smem <= 232_448  # every block of the plan fits shared memory
+    if k < n and k <= 8192:
+        assert p.route == "filter"
+        assert p.qpb in (1, 2, 4, 8) and (p.qpb <= nq or p.qpb == 1)
+        assert p.width >= max(k, 32) and p.width & (p.width - 1) == 0
+        assert p.slots >= 2 and p.slots & (p.slots - 1) == 0
+        assert p.fresh in (512, 1024, 2048, 4096) and (p.width >= 512 or p.fresh == 512)
+        assert p.smem == max(filter_smem(p.qpb, w, p.width, p.fresh),
+                             8 * p.slots * p.width)
+        # the fill bound: every slice's first k rows enter its buffer
+        assert p.slices == 1 or p.slices * k <= n / 8
+        assert 1 <= p.slices <= 65_535  # the grid's second dimension
+        # the slices cover the rows, none of them empty
+        assert p.slices * p.rows_per_slice >= n > (p.slices - 1) * p.rows_per_slice
+        assert p.scratch_bytes == 8 * nq * (1 + p.slices * k)
+    else:
+        assert p.route == "sort"
+        assert p.width >= n and p.width & (p.width - 1) == 0
+        assert 1 <= p.query_chunk <= min(nq, 65_535)
+        assert p.scratch_bytes == 8 * p.query_chunk * p.width
+        assert p.query_chunk == 1 or p.scratch_bytes <= 1 << 30
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's algorithm, replayed: its keys, the filter route's
+# threshold and folds, its stage-2 tree, and the sort route's schedule
+# ---------------------------------------------------------------------------
+
+def _keys(q, db):
+    """The kernel's key of every (query, row): ``pack_keys`` of the plain
+    scores, as uint64."""
+    s = tanimoto_scores_ref(torch.from_numpy(q), torch.from_numpy(db))
+    rows = torch.arange(db.shape[0], dtype=torch.int32)[None, :].expand_as(s)
+    return pack_keys(s, rows).numpy().view(np.uint64)
+
+
+def _decode(top):
+    """The kernel's ``put``: a key to (score, row), 0 to a pad."""
+    s = (top >> np.uint64(32)).astype(np.uint32).view(np.float32)
+    r = (0x7FFFFFFF - (top & np.uint64(0xFFFFFFFF)).astype(np.int64)).astype(np.int32)
+    return np.where(top == 0, np.float32(-1.0), s), np.where(top == 0, -1, r).astype(np.int32)
+
+
+def _stage(a, size, j):
+    """One compare-exchange stage of the kernel's bitonic network over the
+    rows of ``a``: pair (i, i | j) for i = pair_lo(t, j); the larger key to i
+    where ``i & size == 0`` (``size`` 0: always, the merge), else to i | j."""
+    t = np.arange(a.shape[-1] // 2)
+    i = ((t & ~(j - 1)) << 1) | (t & (j - 1))
+    x, y = a[..., i].copy(), a[..., i | j].copy()
+    desc = (i & size) == 0
+    swap = np.where(desc, x < y, x > y)
+    a[..., i] = np.where(swap, y, x)
+    a[..., i | j] = np.where(swap, x, y)
+
+
+def _sort_desc(a):  # warp_sort_desc
+    size = 2
+    while size <= a.shape[-1]:
+        j = size // 2
+        while j:
+            _stage(a, size, j)
+            j //= 2
+        size *= 2
+
+
+def _merge_desc(a):  # warp_merge_desc
+    j = a.shape[-1] // 2
+    while j:
+        _stage(a, 0, j)
+        j //= 2
+
+
+def _fold(kept, fresh):  # team_fold
+    c, p = len(fresh), len(kept)
+    if c == 0:
+        return
+    n = 32
+    while n < c:
+        n *= 2
+    f = np.zeros(n, np.uint64)
+    f[:c] = fresh
+    m = min(p, n)
+    size = 2
+    while size <= m:  # every run of m sorted descending
+        j = size // 2
+        while j:
+            _stage(f, size & (m - 1), j)
+            j //= 2
+        size *= 2
+    h = m
+    while h < n:  # the run at 2hx absorbs the run at 2hx + h
+        runs = f.reshape(-1, m)
+        a = runs[0::2 * h // m]
+        a[:] = np.maximum(a, runs[h // m::2 * h // m, ::-1])
+        _merge_desc(a)
+        runs[0::2 * h // m] = a
+        h *= 2
+    kept[p - m:] = np.maximum(kept[p - m:], f[m - 1::-1])
+    _merge_desc(kept)
+
+
+def _replay_filter(keys, k, p, rng, threads=256, refresh=16):
+    """The filter route on ``keys`` (Q, N) under plan ``p``, its blocks run
+    one after another in a random order (any order the card may take)."""
+    qn, n = keys.shape
+    tau_g = np.zeros(qn, np.uint64)
+    runs = np.zeros((qn, p.slices, k), np.uint64)
+    blocks = [(g, s) for g in range(-(-qn // p.qpb)) for s in range(p.slices)]
+    for b in rng.permutation(len(blocks)):
+        g, s = blocks[b]
+        qs = np.arange(g * p.qpb, min(qn, (g + 1) * p.qpb))
+        kept = np.zeros((len(qs), p.width), np.uint64)
+        fresh = [[] for _ in qs]
+        tau = tau_g[qs].copy()
+
+        def fold():
+            for a in range(len(qs)):
+                _fold(kept[a], np.array(fresh[a], np.uint64))
+                fresh[a] = []
+                publish(a)
+
+        def publish(a):
+            kth = kept[a, k - 1]
+            seen = tau_g[qs[a]]
+            if kth > 0:
+                tau_g[qs[a]] = max(seen, kth)
+            tau[a] = max(tau[a], kth, seen)
+
+        lo, hi = min(s * p.rows_per_slice, n), min((s + 1) * p.rows_per_slice, n)
+        for rnd, r0 in enumerate(range(lo, hi, threads)):
+            tr = tau.copy()
+            for a, qrow in enumerate(qs):
+                block = keys[qrow, r0:min(r0 + threads, hi)]
+                fresh[a].extend(block[block > tr[a]])
+                assert len(fresh[a]) <= p.fresh
+            if any(len(f) > min(p.fresh - threads, 2 * p.width) for f in fresh):
+                fold()
+            elif rnd % refresh == refresh - 1:
+                tau = np.maximum(tau, tau_g[qs])
+        fold()
+        for a, qrow in enumerate(qs):
+            runs[qrow, s] = kept[a, :k]
+    # stage 2: tani_merge_runs, `slots` lists at a time
+    out = np.zeros((qn, k), np.uint64)
+    for qrow in range(qn):
+        lists = np.zeros((p.slots, p.width), np.uint64)
+        lists[0, :k] = runs[qrow, 0]
+        nxt = 1
+        while nxt < p.slices:
+            used = min(p.slots, 1 + p.slices - nxt)
+            g = 2
+            while g < used:
+                g *= 2
+            lists[1:] = 0
+            for t in range(1, g):
+                if nxt + t - 1 < p.slices:
+                    lists[t, :k] = runs[qrow, nxt + t - 1]
+            nxt += used - 1
+            h = 1
+            while h < g:
+                a = lists[0:g:2 * h]
+                a[:] = np.maximum(a, lists[h:g:2 * h, ::-1])
+                _merge_desc(a)
+                lists[0:g:2 * h] = a
+                h *= 2
+        out[qrow] = lists[0, :k]
+    return _decode(out)
+
+
+def _replay_sort(keys, k, length, chunk):
+    """The sort route: the stages the host loop of ``tanimoto_topk_launch``
+    runs (``bitonic_local`` below ``chunk``, ``bitonic_global`` from it up),
+    on keys padded with 0 to ``length``, then ``tani_write``."""
+    qn, n = keys.shape
+    a = np.zeros((qn, length), np.uint64)
+    a[:, :n] = keys
+    schedule = [(sz, j) for sz in (2**e for e in range(1, chunk.bit_length()))
+                for j in (2**e for e in range(sz.bit_length() - 2, -1, -1))]
+    size = 2 * chunk
+    while size <= length:
+        j = size // 2
+        while j >= chunk:
+            schedule.append((size, j))
+            j //= 2
+        schedule += [(size, 2**e) for e in range(chunk.bit_length() - 2, -1, -1)]
+        size *= 2
+    for sz, j in schedule:
+        _stage(a, sz, j)
+    assert (np.diff(a.astype(np.float64), axis=1) <= 0).all()  # descending
+    top = np.zeros((qn, k), np.uint64)
+    top[:, :min(k, n)] = a[:, :min(k, n)]
+    return _decode(top)
+
+
+REPLAY_CASES = [  # (queries, rows, words, k, distinct, slices, queries a block)
+    (5, 3_000, 32, 7, 40, 3, 4),      # tie flood, a partial query group
+    (3, 2_000, 2, 100, 3, 5, 2),      # three fingerprints: ties everywhere
+    (4, 5_000, 32, 300, 5_000, 2, 4),  # random rows, buffers folded often
+    (2, 1_500, 1, 1, 20, 4, 1),       # k = 1, W = 1
+    (6, 4_000, 4, 33, 60, 7, 8),      # k just past a power of 2
+    (3, 6_000, 32, 600, 6_000, 2, 2),  # kept lists of 1,024: buffers of 4,096
+]
+
+
+@pytest.mark.parametrize("qn,n,w,k,distinct,slices,qpb", REPLAY_CASES)
+def test_filter_route_replay_matches_reference(qn, n, w, k, distinct, slices, qpb):
+    rng = np.random.default_rng(qn + n + k)
+    db = _plane(rng, n, w, distinct)
+    q = _queries(rng, db, qn, w)
+    width = max(32, 1 << (k - 1).bit_length())
+    p = plan(qn, n, w, k)._replace(qpb=qpb, slices=slices,
+                                   rows_per_slice=-(-n // slices), width=width,
+                                   slots=2 if slices > 2 else 4)
+    want = r_ref(q, db, k)
+    _same(_replay_filter(_keys(q, db), k, p, rng), want)
+    # the plan's own shapes
+    _same(_replay_filter(_keys(q, db), k, plan(qn, n, w, k), rng), want)
+
+
+@pytest.mark.parametrize("qn,n,w,k,chunk", [
+    (4, 300, 32, 1024, 64),    # k > N: pads; strides from 64 up in device memory
+    (3, 1_000, 2, 1_000, 32),  # k == N, a tie flood
+    (2, 700, 32, 9_000, 1024),  # the whole sort in one block
+    (5, 2_049, 4, 20, 256),    # k < N (the route of a k above 8,192, cut down)
+])
+def test_sort_route_replay_matches_reference(qn, n, w, k, chunk):
+    rng = np.random.default_rng(n + k)
+    db = _plane(rng, n, w, 30)
+    q = _queries(rng, db, qn, w)
+    length = max(2, 1 << (n - 1).bit_length())
+    _same(_replay_sort(_keys(q, db), k, length, min(chunk, length)), r_ref(q, db, k))
+
+
+@pytest.mark.parametrize("qn,n,w,k,distinct", [
+    (5, 400, 32, 9, 20),     # tie flood
+    (4, 300, 2, 300, 3),     # three fingerprints, k == N
+    (6, 50, 32, 80, 50),     # k > N: pads
+    (3, 200, 1, 1, 5),       # W = 1, k = 1
+])
+def test_packed_keys_order_as_the_reference(qn, n, w, k, distinct):
+    """Sorting the kernel's keys descending is the reference's (score desc,
+    row asc) order, zero fingerprints (u = 0) and pads included."""
+    rng = np.random.default_rng(qn * 100 + n)
+    db = _plane(rng, n, w, distinct)
+    q = _queries(rng, db, qn, w)
+    s = tanimoto_scores_ref(torch.from_numpy(q), torch.from_numpy(db))
+    rows = torch.arange(n, dtype=torch.int32)[None, :].expand_as(s)
+    keys = pack_keys(s, rows)
+    assert (keys >= 1).all() and (keys < 2**62).all()
+    got = keys_topk(keys, k)
+    _same((got[0].numpy(), got[1].numpy()), r_ref(q, db, k))
+    # the kernel's decode of the same keys
+    top = torch.sort(keys, dim=1, descending=True).values[:, :k].numpy()
+    full = np.zeros((qn, k), np.uint64)
+    full[:, :top.shape[1]] = top.view(np.uint64)
+    _same(_decode(full), r_ref(q, db, k))
 
 
 # ---------------------------------------------------------------------------
