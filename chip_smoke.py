@@ -40,13 +40,18 @@
    and its output read under the same bound and the output-cast-only one;
    also without the causal mask at whisper-small's encoder (B = 8, H =
    12, S = 1,500, D = 64: 11 key tiles and one of 92) and its cross
-   attention (Sq = 416 against Skv = 1,500), SDPA timed without a mask.
+   attention (Sq = 416 against Skv = 1,500), SDPA timed without a mask;
+   and at the served prefills of gemma3-12b (B = 8, Hq = 16, Hkv = 8, S =
+   2,048, D = 256: window 1,024 and global) and internvl2-76b (B = 8, Hq = 64, Hkv =
+   8, S = 256 image positions + 2,048 = 2,304, D = 128, causal).
    At every attention shape the kernel also runs as training calls it,
    writing the rows' log-sum-exp: the output must be bit-identical and the
    lse within 1e-5 (1 + |lse|) of ``attention_lse_ref`` (+inf exactly
    where a row sees no key).
    After the build, ptxas must report no spills in ``flash_attention.cu``,
-   ``flash_attention_bwd.cu``, ``sorted_probe.cu`` and ``hash_mix.cu``,
+   ``flash_attention_bwd.cu``, ``sorted_probe.cu``, ``hash_mix.cu``,
+   ``sample.cu`` and ``ssd_scan.cu`` (``tanimoto.cu`` spills a few bytes in
+   two instances of its filter kernel),
    and ``cuobjdump -sass`` must show each redesigned kernel's instruction
    (``DESIGN_OPCODES``): ``HGMMA`` and ``UTMALDG`` in the tensor-core
    attention kernel and in both product kernels of its backward,
@@ -177,6 +182,23 @@
    decoder self, 12 cross), the cross cache's bytes (12 x 2 x 8 x 12 x
    1,500 x 64 x 2 B), and the engine profiled and the eager/graph turns
    as in step 6 (the cross cache is a static buffer of the graph too).
+9b. gemma3-12b and internvl2-76b.  The model check of step 5 at full width
+   cut to 2 layers, float32: gemma3 with one window layer and one global
+   layer (``local_block`` 2), its published window of 1,024 and a 1,401-token
+   prompt that passes it (so the sliding mask and the prefill's ring layout
+   run), internvl2 reading 256 seeded nonzero patch embeddings
+   (``torch.Generator`` on the CPU) before the text; the logits and every
+   layer's K/V cache within ``MODEL_ATOL``/``MODEL_RTOL``, 2
+   ``flash_attention`` launches each.  Then served as in step 6, bf16:
+   gemma3-12b at its published widths and full depth (48 layers; three
+   prompts pass the window, so decode runs through the ring caches, whose
+   slot the captured step reads from the position buffer) through
+   ``launch.serve.run``, and internvl2-76b at its published widths cut to
+   16 of its 80 layers (its config cut and handed to ``launch.serve.run``:
+   the launcher has no depth option; the engine's stub feeds zero patch
+   embeddings, positions start at 256):
+   the same tokens over 2 runs, 48 and 16 tensor-core launches a prefill,
+   none in decode, the profile and the eager/graph turns.
 10. MoE: moonshot-v1-16b-a3b at full width cut to 2 layers, float32, card
    against CPU: the router's top-6 experts first (flips only at a
    probability near-tie pass), then prefill logits within
@@ -197,7 +219,8 @@
    kernel (``csrc/flash_attention_bwd.cu``, reached through autograd after
    the tensor-core forward) in bf16 at yi-6b's training shape (B = 4, Hq
    = 32, Hkv = 4, S = 2,048, D = 128, causal), at gemma3-12b's window (S
-   = 4,096, D = 256, window 1,024) and, without the causal mask, at
+   = 4,096, D = 256, window 1,024), at its training step's window and
+   global layers (B = 4, S = 2,048) and, without the causal mask, at
    whisper-small's encoder (B = 4, H = 12, S = 1,500, D = 64): one
    backward (three kernels), dq, dk, dv within
    ``grad_bound_excess(tensor_core=True)`` (the forward's bound plus the
@@ -212,10 +235,11 @@
    zero on the card where the CPU's is not, 2 ``flash_attention`` or 3
    ``ssd_scan`` launches a layer; ``Trainer`` on jamba's smoke config on
    the card crashes at step 3 and resumes from step 2's checkpoint bit
-   for bit; and full-size training through ``launch.train.run`` (B = 4 x
-   2,048 tokens of the index-backed corpus, bf16 compute over float32
-   masters and moments): mamba2-1.3b at 48 layers for 5 steps and yi-6b
-   cut to 4 of its 32 layers for 3 (its 6.06B parameters with float32
+   for bit; and full-size training through ``launch.train``'s trainer
+   (``build``, then ``Trainer.run``; B = 4 x 2,048 tokens of the
+   index-backed corpus, bf16 compute over float32 masters and moments):
+   mamba2-1.3b at 48 layers for 5 steps and yi-6b cut to 4 of its 32
+   layers for 3 (its 6.06B parameters with float32
    moments need about 97 GB: more than the card), under the remat policy
    "names" (the default), with step ms, tokens/s,
    peak memory, every kernel's launches a step (144 ``ssd_scan``, 8
@@ -225,7 +249,13 @@
    and bytes (then deleted); then 3 more steps of the same state under
    "nothing" (no checkpoint), with the same launches a step (under both
    policies the attention forward and the scan run again in the backward:
-   PERF.md's derivation), step ms, tokens/s and peak memory.
+   PERF.md's derivation), step ms, tokens/s and peak memory.  Then
+   gemma3-12b cut to one published block (6 layers: 5 with the window of
+   1,024, 1 global) for 2 steps the same way but without a checkpoint (its
+   ~40 GB of state: the launcher's trainer stops after its last step as a
+   run that dies there does), loss and gradient norm finite, 6 backward
+   launches a step, 5 of them windowed, and 12 tensor-core forward
+   launches.
 12. Execution over a mesh, one process over a 1x1 ``DeviceMesh`` on a
    one-rank NCCL group.  (a) Right after step 6's continuous serving,
    yi-6b at full size through ``Engine(mesh=1x1, param_specs=...)`` on the
@@ -256,8 +286,9 @@
    serving phase's:
    ``hash_mix`` in the service, ``digest_ids`` and training's batch
    verify, ``flash_attention`` in yi-6b's static and continuous serving,
-   whisper-small's, moonshot's, training and the mesh phase, ``ssd_scan``
-   in serving, training and the mesh trainer; kernel bounds from
+   whisper-small's, gemma3-12b's, internvl2-76b's, moonshot's, training
+   (gemma3's included, as in the backward's) and the mesh phase,
+   ``ssd_scan`` in serving, training and the mesh trainer; kernel bounds from
    ``repro_torch.kernels.work``, the dry-run's own formulas), the
    card line, and as the last line ``{"ok": true, "device": {...}}``.
    Any failure exits non-zero before it.
@@ -350,6 +381,12 @@ class FaCase(NamedTuple):
 FA_YI = FaCase("yi-6b", 8, 32, 4, 2048, 2048, 128)
 FA_GEMMA = FaCase("gemma3-12b", 1, 16, 8, 4096, 4096, 256, window=1024)
 FA_MOONSHOT = FaCase("moonshot-v1-16b-a3b", 8, 16, 16, 2048, 2048, 128)
+# the served prefills of gemma3-12b (the 8 prompts padded to 2,048 tokens: a
+# window layer and a global one) and internvl2-76b (256 image positions
+# before them)
+FA_GEMMA_SERVED = FaCase("gemma3-12b served", 8, 16, 8, 2048, 2048, 256, window=1024)
+FA_GEMMA_SERVED_GLOBAL = FaCase("gemma3-12b served global", 8, 16, 8, 2048, 2048, 256)
+FA_VLM_SERVED = FaCase("internvl2-76b served", 8, 64, 8, 2304, 2304, 128)
 FA_SUFFIX = (FaCase("yi-6b suffix", 1, 32, 4, 512, 2048, 128, paged=True),
              FaCase("yi-6b suffix short", 1, 32, 4, 48, 1072, 128, paged=True),
              FaCase("yi-6b suffix unaligned", 1, 32, 4, 208, 1248, 128, paged=True))
@@ -388,6 +425,18 @@ CHUNKED_MAX_LEN = 16_384   # the long-context cache of the DECODE_CHUNKED readin
 # at most twice the one-pass path's on the same step
 CHUNKED_ERR_RATIO = 2.0
 HYBRID = "jamba-1.5-large-398b"  # its smoke config: no hybrid config fits one card
+# gemma3-12b and internvl2-76b on the card.  The model check cuts gemma3 to
+# one window layer and one global layer (local_block 2, as the reference's
+# smoke cut does), its window the published 1,024, and its long prompt
+# passes the window; internvl2's prefill reads its published 256 image
+# positions as seeded nonzero patch embeddings.  internvl2 is served cut to
+# 16 of its 80 layers (the whole model's bf16 weights, ~152 GB, do not fit
+# one card); gemma3 at full depth.
+GEMMA = "gemma3-12b"
+VLM = "internvl2-76b"
+GEMMA_MODEL_LENGTHS = (1400, 97)
+VLM_MODEL_LENGTHS = (255, 97)
+VLM_SERVE_LAYERS = 16
 SERVE_LENGTHS = (17, 64, 160, 384, 768, 1152, 1600, 2047)  # prompt bytes
 SERVE_NEW_TOKENS = 32
 SERVE_MAX_LEN = 4096
@@ -930,7 +979,8 @@ def attention_case(case: FaCase, seed: int):
 
 # sources whose kernels must not spill, and what each redesigned kernel's
 # SASS must hold: (source, kernel, opcodes)
-NO_SPILL_SOURCES = ("flash_attention", "flash_attention_bwd", "sorted_probe", "hash_mix")
+NO_SPILL_SOURCES = ("flash_attention", "flash_attention_bwd", "sorted_probe", "hash_mix",
+                    "sample", "ssd_scan")
 DESIGN_OPCODES = (
     ("flash_attention", "fa_forward_tc", ("HGMMA", "UTMALDG")),  # wgmma, TMA
     ("flash_attention_bwd", "fa_backward_dkdv", ("HGMMA", "UTMALDG")),
@@ -1196,8 +1246,9 @@ def prompt_batch(prompts):
 
 def model_cases():
     """The model checks, in float32, as ``{phase: [(name, cfg, init,
-    prefill, prompt bytes, kernel launches wanted), ...]}``: yi-6b and
-    mamba2-1.3b at full width cut to ``MODEL_LAYERS`` layers, and jamba's
+    prefill, prompt bytes, kernel launches wanted), ...]}``: yi-6b,
+    mamba2-1.3b, gemma3-12b (one window and one global layer) and
+    internvl2-76b at full width cut to ``MODEL_LAYERS`` layers, and jamba's
     smoke config (no hybrid config of the repo fits one card)."""
     import dataclasses
 
@@ -1213,9 +1264,18 @@ def model_cases():
     jamba = dataclasses.replace(get_config("jamba-1.5-large-398b").smoke(),
                                 dtype="float32")
     n_blocks, _, mamba_pos, _, _ = _layout(jamba)
+    gemma = dataclasses.replace(cut(GEMMA), local_block=MODEL_LAYERS)
+    vlm = cut(VLM)
     return {
         "dense": [("yi-6b full width, 2 layers", cut("yi-6b"), init_lm, lm_prefill,
                    (255, 97), {"flash_attention": MODEL_LAYERS})],
+        "families": [
+            (f"{GEMMA} full width, 2 layers (window {gemma.window}, then global)", gemma,
+             init_lm, lm_prefill, GEMMA_MODEL_LENGTHS, {"flash_attention": MODEL_LAYERS}),
+            (f"{VLM} full width, 2 layers, {vlm.n_img_tokens} seeded patch embeddings",
+             vlm, init_lm, lm_prefill, VLM_MODEL_LENGTHS,
+             {"flash_attention": MODEL_LAYERS}),
+        ],
         "recurrent": [
             ("mamba2-1.3b full width, 2 layers", cut("mamba2-1.3b"), init_ssm,
              ssm_prefill, SSM_MODEL_LENGTHS, {"ssd_scan": MODEL_LAYERS}),
@@ -1227,25 +1287,35 @@ def model_cases():
 
 
 def model_phase(work: Path, seed: int, cases, wrappers) -> None:
-    """For each case: weights made once on the CPU and copied to the card,
-    prefill logits of two ragged corpus prompts on the card against the
-    CPU's, in float32 with TF32 off, and the card's kernel launches
-    (``wrappers``' counts) against the ones wanted."""
+    """For each case: weights drawn once on the card from ``seed`` and
+    copied to the CPU (drawn on the CPU, they took most of a full-width
+    check's time), prefill logits of two ragged corpus prompts on the card
+    against the CPU's, in float32 with TF32 off, and the card's kernel launches
+    (``wrappers``' counts) against the ones wanted.  On the VLM both read
+    the same seeded nonzero patch embeddings (``torch.Generator`` on the
+    CPU).  On the dense and VLM families every layer's K/V cache on the
+    card must match the CPU's within the same tolerances too: on a window
+    layer that the long prompt passes, the ring of its last ``window``
+    positions."""
     import copy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for name, cfg, init, prefill, lengths, want_launches in cases:
         t0 = time.perf_counter()
-        g = torch.Generator(device="cpu")
-        g.manual_seed(seed)
-        cpu_model = init(cfg, g, "cpu")
-        card_model = copy.deepcopy(cpu_model).to("cuda")
+        card_model = init(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        cpu_model = copy.deepcopy(card_model).to("cpu")
         toks, lens = prompt_batch(corpus_prompts(work, lengths))
-        want, _ = prefill(cpu_model, cfg, toks, lengths=lens)
+        extra = {}
+        if cfg.family == "vlm":
+            g = torch.Generator(device="cpu").manual_seed(seed)
+            extra = {"extra_embeds": torch.randn((len(lengths), cfg.n_img_tokens,
+                                                  cfg.d_model), generator=g)}
+        want, want_cache = prefill(cpu_model, cfg, toks, lengths=lens, **extra)
         for fn in wrappers.values():
             fn.launches = 0
-        got, cache = prefill(card_model, cfg, toks.cuda(), lengths=lens.cuda())
+        got, cache = prefill(card_model, cfg, toks.cuda(), lengths=lens.cuda(),
+                             **{k: t.cuda() for k, t in extra.items()})
         torch.cuda.synchronize()
         launches = {n: fn.launches for n, fn in wrappers.items()}
         got = got.cpu()
@@ -1254,9 +1324,20 @@ def model_phase(work: Path, seed: int, cases, wrappers) -> None:
                  "misshaped")
         err = float((got - want).abs().max())
         ok = torch.allclose(got, want, atol=MODEL_ATOL, rtol=MODEL_RTOL)
+        kv = ""
+        if cfg.family in ("dense", "vlm"):
+            pairs = [(c[n].cpu(), w[n]) for c, w in zip(cache, want_cache) for n in "kv"]
+            kv_err = max(float((a - b).abs().max()) for a, b in pairs)
+            kv_ok = all(a.shape == b.shape and torch.allclose(a, b, atol=MODEL_ATOL,
+                                                              rtol=MODEL_RTOL)
+                        for a, b in pairs)
+            kv = (f"; K/V caches (slots per layer "
+                  f"{[c['k'].shape[2] for c in cache]}) max_abs_err={kv_err:.6g}")
+            if not kv_ok:
+                fail(f"model check {name}: card caches differ from the CPU's{kv}")
         print(f"model check: {name}, float32, allow_tf32=False; prompts "
               f"{lens.tolist()} tokens; card vs CPU prefill logits "
-              f"max_abs_err={err:.6g} (atol {MODEL_ATOL}, rtol {MODEL_RTOL}); "
+              f"max_abs_err={err:.6g} (atol {MODEL_ATOL}, rtol {MODEL_RTOL}){kv}; "
               f"launches {json.dumps(launches)}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         if not ok:
@@ -1265,7 +1346,7 @@ def model_phase(work: Path, seed: int, cases, wrappers) -> None:
             if n != want_launches.get(kernel, 0):
                 fail(f"model check {name}: {n} {kernel} launches, want "
                      f"{want_launches.get(kernel, 0)}")
-        del cpu_model, card_model, cache, got
+        del cpu_model, card_model, cache, got, want_cache, extra
         torch.cuda.empty_cache()
 
 
@@ -1279,9 +1360,12 @@ def prefill_launches(cfg) -> int:
 
 
 def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
-                     max_len: int = SERVE_MAX_LEN, lengths=SERVE_LENGTHS):
+                     max_len: int = SERVE_MAX_LEN, lengths=SERVE_LENGTHS,
+                     layers: Optional[int] = None):
     """``arch`` at its published widths and full depth, bfloat16, through
-    launch.serve.run with the corpus prompts of ``lengths`` bytes;
+    launch.serve.run (with ``layers``, its published config cut to that
+    depth: the launcher has no depth option) with the corpus prompts of
+    ``lengths`` bytes;
     ``wrapper``'s kernel must launch exactly ``prefill_launches`` times per
     prefill and never in decode.  Returns its launches over the phase, the
     served engine (for callers that go on serving its model) and the runs
@@ -1304,7 +1388,8 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
     if routed:
         wrapper.tc_launches = 0
     t0 = time.perf_counter()
-    out = serve.run(args)
+    out = serve.run(args, None if layers is None else
+                    dataclasses.replace(get_config(arch), n_layers=layers))
     launches = wrapper.launches
     tc_launches = wrapper.tc_launches if routed else None
     secs = time.perf_counter() - t0
@@ -2399,11 +2484,14 @@ def moe_serving_phase(work: Path, seed: int, card: str) -> int:
 #
 # Backward cases (FaCase, Sq = Skv).  yi-6b's training shape (B = 4
 # sequences of 2,048 tokens), gemma3-12b's sliding-window layer (B = 1, S =
-# 4,096, window 1,024) and whisper-small's encoder over 1,500 frames (B =
-# 4, no mask).  The ssd_scan backward at mamba2-1.3b's training shape: BH =
-# 4 x 64 heads, C = 8 chunks of 256.
+# 4,096, window 1,024), its training step's two layer kinds (B = 4, S =
+# 2,048: window 1,024 and global) and whisper-small's encoder over 1,500
+# frames (B = 4, no mask).  The ssd_scan backward at mamba2-1.3b's training
+# shape: BH = 4 x 64 heads, C = 8 chunks of 256.
 FA_TRAIN = FaCase("yi-6b train", 4, 32, 4, 2048, 2048, 128)
 FA_TRAIN_WINDOW = FaCase("gemma3-12b window", 1, 16, 8, 4096, 4096, 256, window=1024)
+FA_TRAIN_GEMMA = (FaCase("gemma3-12b train", 4, 16, 8, 2048, 2048, 256, window=1024),
+                  FaCase("gemma3-12b train global", 4, 16, 8, 2048, 2048, 256))
 FA_TRAIN_WHISPER = FaCase("whisper-small encoder train", 4, 12, 12, 1500, 1500, 64,
                           causal=False)
 SSD_TRAIN = ("train", 256, 8, 64, 128)
@@ -2413,6 +2501,10 @@ CRASH_ARCH = "jamba-1.5-large-398b"  # smoke: both kernels and the MoE on one pa
 TRAIN_SEQ, TRAIN_BATCH = 2048, 4
 # the full-size runs: (arch, layers or None for the full depth, steps)
 FULL_TRAIN = (("mamba2-1.3b", None, 5), ("yi-6b", 4, 3))
+# gemma3-12b's windowed training step: one published block (five window
+# layers, one global), 2 steps, no checkpoint (its ~40 GB of state would
+# take minutes to write)
+GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS = 6, 2
 NOTHING_STEPS = 3          # the same state's steps under the "nothing" policy
 
 
@@ -2793,17 +2885,21 @@ def profile_train_step(tr, state, step: int, card: str, label: str) -> dict:
 
 
 def full_training_phase(work: Path, arch: str, layers, steps: int, card: str,
-                        wrappers) -> dict:
+                        wrappers, ckpt: bool = True) -> dict:
     """``arch`` at its published widths (``layers`` cuts the depth), bf16
     compute over float32 masters and moments, through
-    ``repro_torch.launch.train.run``: ``TRAIN_BATCH`` sequences of
-    ``TRAIN_SEQ`` tokens, ``steps`` steps, the only checkpoint the final
-    one (timed, sized, deleted).  Every kernel's launches per step are
-    counted (reset just before the run); ``flash_attention`` must launch
-    twice a layer a step (forward, recompute) on the tensor-core route,
-    ``ssd_scan`` three times (forward, recompute, backward), and the
-    attention backward kernel once a layer a step (its three kernels once
-    each).  Then one more step under the profiler."""
+    ``repro_torch.launch.train``: ``TRAIN_BATCH`` sequences of
+    ``TRAIN_SEQ`` tokens, ``steps`` steps, the only checkpoint the final one (timed,
+    sized, deleted).  Without ``ckpt`` no checkpoint is written: the
+    launcher's trainer (``train.build``) stops after its last step as a run
+    that dies there does (``Trainer.run(die_at_step=)``), since the trainer
+    writes one at its last step whatever ``--ckpt-every`` says.  Every
+    kernel's launches per step are counted (reset just before the run);
+    ``flash_attention`` must launch twice a layer a step (forward,
+    recompute) on the tensor-core route, ``ssd_scan`` three times
+    (forward, recompute, backward), and the attention backward kernel once
+    a layer a step (its three kernels once each), with a window on each
+    window layer.  Then one more step under the profiler."""
     import shutil
 
     from repro_torch.launch import train
@@ -2837,53 +2933,64 @@ def full_training_phase(work: Path, arch: str, layers, steps: int, card: str,
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = train.run(args, on_step=on_step)
+    tr, ds = train.build(args)
+    try:
+        final, state, hist = tr.run(on_step=on_step, die_at_step=None if ckpt else steps)
+    finally:
+        ds.close()
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    tr, hist, state = out["trainer"], out["history"], out["state"]
     model = state["model"]
     n_layers = len(model.layers)
     n_params = sum(p.numel() for p in model.parameters())
-    if out["final_step"] != steps or len(hist) != steps:
-        fail(f"train[{arch}]: stopped at step {out['final_step']}")
+    if final != steps or len(hist) != steps:
+        fail(f"train[{arch}]: stopped at step {final}")
     for h in hist:
         if not np.isfinite(h["loss"]) or not np.isfinite(h["grad_norm"]):
             fail(f"train[{arch}]: step {h['step']} loss {h['loss']} not finite")
     fam = tr.api.cfg.family
     attn = n_layers if fam != "ssm" else 0
+    windowed = sum(w is not None for w in model.windows()) if attn else 0
     want = {"flash_attention": 2 * attn, "flash_attention.tc_launches": 2 * attn,
             "ssd_scan": 3 * n_layers if fam == "ssm" else 0,
             "flash_attention_bwd": attn, "flash_attention_bwd.delta_launches": attn,
             "flash_attention_bwd.dkdv_launches": attn,
-            "flash_attention_bwd.dq_launches": attn}
+            "flash_attention_bwd.dq_launches": attn,
+            "flash_attention_bwd.window_launches": windowed}
     for i, got in enumerate(per_step):
         for k, n in want.items():
             if got[k] != n:
                 fail(f"train[{arch}] step {i}: {got[k]} {k} launches, want {n}")
-    ckpt = tr.ckpt.root / f"step_{steps:08d}"
-    ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
-    ckpt_s = hist[-1]["ckpt_s"]
+    if ckpt:
+        ckpt_dir = tr.ckpt.root / f"step_{steps:08d}"
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+        ckpt_s = hist[-1]["ckpt_s"]
+        saved = (f"final checkpoint {ckpt_bytes} bytes in {ckpt_s:.3f} s "
+                 f"({ckpt_bytes / ckpt_s / 1e9:.3f} GB/s; {free} bytes free before)")
+    else:
+        saved = "no checkpoint written"
     steady = [h["dt"] for h in hist[1:]]
     step_ms = float(np.median(steady)) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"train[{arch}]: {n_layers} layers at full width ({n_params} parameters), "
+    print(f"train[{arch}]: {n_layers} layers at full width ({n_params} parameters, "
+          f"{windowed} with a sliding window), "
           f"bf16 compute, float32 masters and moments, B={TRAIN_BATCH} x S={TRAIN_SEQ}; "
           f"{steps} steps in {secs:.1f} s (corpus, index and init included); step_ms "
           f"first {hist[0]['dt'] * 1e3:.3f}, then {', '.join(f'{d * 1e3:.3f}' for d in steady)} "
           f"(median {step_ms:.3f}) = {tokens / step_ms * 1e3:.1f} tokens/s; "
           f"peak_allocated={peak} (at the start {base}); launches per step "
           f"{json.dumps(per_step[-1])}; losses {[round(h['loss'], 4) for h in hist]}; "
-          f"final checkpoint {ckpt_bytes} bytes in {ckpt_s:.3f} s "
-          f"({ckpt_bytes / ckpt_s / 1e9:.3f} GB/s; {free} bytes free before); "
+          f"grad norms {[round(h['grad_norm'], 4) for h in hist]}; {saved}; "
           f"card: {card}", flush=True)
-    shutil.rmtree(tr.ckpt.root)
+    if ckpt:
+        shutil.rmtree(tr.ckpt.root)
     prof = profile_train_step(tr, state, steps, card, arch)
     nothing = nothing_policy_steps(tr, state, steps + 1, arch, counts, want, card)
     print(f"train[{arch}] remat policies: \"names\" step_ms {step_ms:.3f} "
           f"peak_allocated {peak}; \"nothing\" step_ms {nothing['step_ms']:.3f} "
           f"peak_allocated {nothing['peak']}; nothing / names = "
           f"{nothing['step_ms'] / step_ms:.4f}; card: {card}", flush=True)
-    del out, tr, state, model
+    del tr, state, model
     torch.cuda.empty_cache()
     return dict(launches=per_step + nothing["launches"], steps=steps,
                 step_ms=step_ms, prof=prof, nothing_ms=nothing["step_ms"])
@@ -3225,14 +3332,16 @@ def main() -> None:
     probe, hm = kernel_phase(args.seed)
     tani = tanimoto_phase(args.seed)
     attn = attention_case(FA_YI, args.seed)
-    for case in (FA_GEMMA, FA_MOONSHOT, *FA_SUFFIX, *FA_WHISPER):
+    for case in (FA_GEMMA, FA_GEMMA_SERVED, FA_GEMMA_SERVED_GLOBAL, FA_VLM_SERVED,
+                 FA_MOONSHOT, *FA_SUFFIX, *FA_WHISPER):
         attention_case(case, args.seed)
     ssd = ssd_scan_case(SSD_PREFILL, args.seed)
     ssd_scan_case(SSD_LONG, args.seed)
     smp = sample_case(args.seed)
     ssd_scan_backward_case(args.seed)
     fa_bwd = attention_backward_case(FA_TRAIN, args.seed)
-    attention_backward_case(FA_TRAIN_WINDOW, args.seed)
+    for case in (FA_TRAIN_WINDOW, *FA_TRAIN_GEMMA):
+        attention_backward_case(case, args.seed)
     attention_backward_case(FA_TRAIN_WHISPER, args.seed)
     print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3294,6 +3403,18 @@ def main() -> None:
         torch.cuda.empty_cache()
         print(f"encoder-decoder phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
+        model_phase(Path(work), args.seed, checks["families"], lm_wrappers)
+        fa_gemma, engine, _ = lm_serving_phase(Path(work), args.seed, GEMMA,
+                                               flash_attention_cuda, card)
+        del engine
+        torch.cuda.empty_cache()
+        fa_vlm, engine, _ = lm_serving_phase(Path(work), args.seed, VLM,
+                                             flash_attention_cuda, card,
+                                             layers=VLM_SERVE_LAYERS)
+        del engine
+        torch.cuda.empty_cache()
+        print(f"gemma3 and internvl2 phases: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
         moe_model_check(Path(work), args.seed, card)
         fa_moe = moe_serving_phase(Path(work), args.seed, card)
         print(f"MoE phases: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3307,6 +3428,9 @@ def main() -> None:
         trained = {arch: full_training_phase(Path(work), arch, layers, steps, card,
                                              train_wrappers)
                    for arch, layers, steps in FULL_TRAIN}
+        trained[GEMMA] = full_training_phase(
+            Path(work), GEMMA, GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS, card,
+            train_wrappers, ckpt=False)
         print(f"training phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         mesh = one_card_mesh()
@@ -3318,23 +3442,32 @@ def main() -> None:
     hm_serving = launches["hash_mix"]
     train_total = {k: sum(step[k] for t in trained.values() for step in t["launches"])
                    for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "hash_mix",
-                             "sorted_probe")}
+                             "sorted_probe", "flash_attention_bwd.window_launches")}
+    gemma_train = {k: sum(step[k] for step in trained[GEMMA]["launches"])
+                   for k in ("flash_attention", "flash_attention_bwd",
+                             "flash_attention_bwd.window_launches")}
     launches["hash_mix"] += digest_launches + train_total["hash_mix"]
     launches["flash_attention"] = (fa_static + fa_cont + fa_sampled + fa_moe + fa_whisper
-                                   + train_total["flash_attention"] + fa_mesh + fa_ep)
+                                   + fa_gemma + fa_vlm + train_total["flash_attention"]
+                                   + fa_mesh + fa_ep)
     launches["ssd_scan"] += train_total["ssd_scan"] + ssd_mesh
     print(f"launches by path: hash_mix serve_index {hm_serving} + digest_ids "
           f"{digest_launches} + training's batch verify {train_total['hash_mix']}; "
           f"flash_attention yi-6b static {fa_static} + yi-6b continuous {fa_cont} + "
           f"yi-6b sampled {fa_sampled} + "
           f"moonshot static and continuous {fa_moe} + whisper-small static "
-          f"{fa_whisper} + training "
-          f"{train_total['flash_attention']} + the mesh phase's yi-6b serving {fa_mesh} "
+          f"{fa_whisper} + gemma3-12b static {fa_gemma} + internvl2-76b static "
+          f"{fa_vlm} + training "
+          f"{train_total['flash_attention']} (gemma3-12b's "
+          f"{gemma_train['flash_attention']}) + the mesh phase's yi-6b serving {fa_mesh} "
           f"and moonshot expert-parallel prefill {fa_ep}; ssd_scan mamba2 serving + "
           f"training {train_total['ssd_scan']} + the mesh trainer {ssd_mesh}; "
           f"sorted_probe in training "
           f"{train_total['sorted_probe']} (the launcher's index is in memory); "
-          f"flash_attention backward kernel in training {train_total['flash_attention_bwd']}; "
+          f"flash_attention backward kernel in training {train_total['flash_attention_bwd']} "
+          f"(gemma3-12b's {gemma_train['flash_attention_bwd']}, of them with a window "
+          f"{gemma_train['flash_attention_bwd.window_launches']}; with a window in all "
+          f"{train_total['flash_attention_bwd.window_launches']}); "
           f"sample in yi-6b's sampled serving {sample_launches}", flush=True)
     yi = trained["yi-6b"]
     est = fa_bwd["ms"] * 4 / yi["step_ms"]

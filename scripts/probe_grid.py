@@ -55,6 +55,9 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("probe_grid: needs a CUDA card")
+    # chip_smoke imported this checkout's package: time the one in --src
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
     sys.path.insert(0, str(args.src.resolve()))  # ahead of this checkout's src
     sp = importlib.import_module("repro_torch.kernels.sorted_probe.kernel")
     from repro_torch.kernels.sorted_probe.ref import sorted_probe_ref

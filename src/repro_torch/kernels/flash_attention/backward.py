@@ -26,8 +26,9 @@ first copied to a contiguous tensor (autograd hands the model's transposed
 view, which TMA reads).  A launch that fails raises; nothing falls back.
 
 ``flash_attention_bwd_cuda.launches`` counts backwards (one each, whatever
-number of kernels it launches); ``delta_launches``, ``dkdv_launches`` and
-``dq_launches`` count each kernel's launches (thread-safe).
+number of kernels it launches), ``window_launches`` those with a sliding
+window that masks (``window < Skv``); ``delta_launches``, ``dkdv_launches``
+and ``dq_launches`` count each kernel's launches (thread-safe).
 """
 
 from __future__ import annotations
@@ -134,11 +135,13 @@ def flash_attention_bwd_cuda(q, k, v, out, d_out, lse, causal: bool = True,
                 raise RuntimeError(f"flash_attention backward kernel {kernel} launch "
                                    f"failed: cudaError {err}")
             count_launch(flash_attention_bwd_cuda, counter)
-    count_launch(flash_attention_bwd_cuda)
+    count_launch(flash_attention_bwd_cuda,
+                 *(("launches", "window_launches") if has_window else ()))
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.window_launches = 0
 flash_attention_bwd_cuda.delta_launches = 0
 flash_attention_bwd_cuda.dkdv_launches = 0
 flash_attention_bwd_cuda.dq_launches = 0

@@ -44,7 +44,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..configs import ARCH_NAMES, get_config
+from ..configs import ARCH_NAMES, ModelConfig, get_config
 from ..device import resolve_device
 from ..models.registry import build_model
 from ..models.specs import param_specs
@@ -88,18 +88,21 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args: argparse.Namespace) -> Dict[str, object]:
+def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> Dict[str, object]:
     """Serve as ``args`` says (see :func:`build_parser`); returns a summary
     with every run's tokens and timings, and the ``engine`` itself for
-    callers that go on serving (or profiling) the same model."""
+    callers that go on serving (or profiling) the same model.  ``cfg``, when
+    given, is served in place of ``--arch``'s config (a caller's cut of it,
+    say a published config at a smaller depth)."""
     dev = resolve_device(args.device)
     if args.continuous and args.mesh != "1x1":
         raise SystemExit("--continuous serves on one device; drop --mesh "
                          f"{args.mesh} (the continuous engine takes no mesh)")
     mesh = mesh_from_str(args.mesh, device=dev.type)
-    cfg = get_config(args.arch)
-    if not args.full_config:
-        cfg = cfg.smoke()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if not args.full_config:
+            cfg = cfg.smoke()
     if cfg.family == "vlm":
         print("note: vlm frontend stubbed — serving text-only prompts")
     if cfg.family == "encdec":

@@ -18,7 +18,8 @@ than one device runs under torchrun, one process per device, e.g.
 --device cpu``: rank 0 builds the corpus, every rank the index, and the
 trainer spreads each global batch over "data".  ``--arch whisper-small``
 raises: the batches carry no audio frames (``Trainer``).  :func:`run` drives it
-in-process and returns a summary with the history and the trainer.
+in-process and returns a summary with the history and the trainer;
+:func:`build` wires the same trainer and dataset without running it.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -39,7 +40,7 @@ from ..train.optimizer import AdamWConfig
 from ..train.trainer import Trainer, TrainerConfig, require_token_model
 from .mesh import mesh_from_str
 
-__all__ = ["build_parser", "main", "run"]
+__all__ = ["build", "build_parser", "main", "run"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,9 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args: argparse.Namespace, on_step=None) -> Dict[str, object]:
-    """Train as ``args`` says → ``{"final_step", "history", "trainer",
-    "state"}``; ``on_step(step, record)`` is called after every step."""
+def build(args: argparse.Namespace) -> Tuple[Trainer, IndexedDataset]:
+    """The trainer ``args`` describe and the dataset it reads (the caller
+    closes it): corpus, index, dataset, model config and trainer, as
+    :func:`run` wires them."""
     dev = resolve_device(args.device)
     mesh = mesh_from_str(args.mesh, device=dev.type)
     cfg = get_config(args.arch)
@@ -104,7 +106,13 @@ def run(args: argparse.Namespace, on_step=None) -> Dict[str, object]:
         opt=AdamWConfig(warmup_steps=max(2, args.steps // 10),
                         total_steps=args.steps),
     )
-    tr = Trainer(cfg, tcfg, ds, Path(args.workdir), mesh=mesh, device=dev)
+    return Trainer(cfg, tcfg, ds, Path(args.workdir), mesh=mesh, device=dev), ds
+
+
+def run(args: argparse.Namespace, on_step=None) -> Dict[str, object]:
+    """Train as ``args`` says → ``{"final_step", "history", "trainer",
+    "state"}``; ``on_step(step, record)`` is called after every step."""
+    tr, ds = build(args)
     try:
         final, state, hist = tr.run(on_step=on_step)
     finally:

@@ -977,11 +977,15 @@ GRAPH_PROMPTS = (["InChI=1S/C12H22O2/", "C", "x" * 50, "InChI=1S/H2O/h1H2"],
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "mamba2-1.3b", "moonshot-v1-16b-a3b",
-                                  "jamba-1.5-large-398b", "whisper-small"])
+                                  "jamba-1.5-large-398b", "whisper-small",
+                                  "gemma3-12b", "internvl2-76b"])
 def test_decode_graph_tokens_equal_eager_on_the_card(cuda, arch):
     """float32 smoke configs: the captured step replays the eager step's
     tokens; a second ``generate`` at the same key replays the same graph,
-    a second batch size captures another."""
+    a second batch size captures another.  With sliding-window layers
+    (gemma3) each batch also holds a prompt past the window, so the ring
+    caches wrap and the step reads its slot from the position buffer; the
+    VLM decodes after its image positions."""
     from repro_torch.serve.engine import Engine, ServeConfig
 
     cfg, _, model = _smoke_lm(cuda, arch)
@@ -989,8 +993,10 @@ def test_decode_graph_tokens_equal_eager_on_the_card(cuda, arch):
     eager = Engine(cfg, model, scfg, device=cuda, decode="eager")
     graph = Engine(cfg, model, scfg, device=cuda)
     assert graph.decode == "graph"
+    past_window = ["z" * (cfg.window + 6)] if cfg.window else []
     steps = 0
     for prompts in (*GRAPH_PROMPTS, GRAPH_PROMPTS[0][:2]):
+        prompts = list(prompts) + past_window
         got = graph.generate(prompts)
         assert [r.token_ids for r in got] == [r.token_ids for r in eager.generate(prompts)]
         steps += got[0].steps

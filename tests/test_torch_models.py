@@ -373,3 +373,23 @@ def test_serve_launcher_runs_on_cpu_and_continuous_gives_static_tokens(capsys):
     assert cont["spec"]["n_blocks"] == 8 * 2 + 2 + 2
     assert cont["counters"]["completed"] == 2
     assert "slo: ttft p50" in capsys.readouterr().out
+
+
+def test_serve_launcher_serves_a_callers_config():
+    """``serve.run(args, cfg)`` serves the caller's cut of a config (the
+    launcher has no depth option): the cut's depth, weights and cache, the
+    tokens of an ``Engine`` on the same seed's weights."""
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(
+        ["--device", "cpu", "--max-new-tokens", "3", "--max-len", "32", "--seed", "5"])
+    cfg = dataclasses.replace(get_config("yi-6b").smoke(), n_layers=1)
+    out = serve.run(args, cfg)
+    assert out["n_layers"] == 1 and out["engine"].cfg is cfg
+    # batch 2 x 1 layer x (k, v) x 1 KV head x 32 slots x 32 dims x 2 bytes
+    assert out["kv_cache_bytes"] == 2 * 1 * 2 * 1 * 32 * 32 * 2
+    model = build_model(cfg).init(torch.Generator(device="cpu").manual_seed(5), "cpu")
+    assert out["weight_bytes"] == sum(p.numel() * p.element_size()
+                                      for p in model.parameters())
+    eng = Engine(cfg, model, ServeConfig(max_new_tokens=3, max_len=32), device="cpu")
+    assert out["runs"][0]["token_ids"] == [r.token_ids for r in eng.generate(args.prompts)]

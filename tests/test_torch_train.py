@@ -182,8 +182,8 @@ def test_cosine_schedule_matches_reference(step):
 # losses
 # ---------------------------------------------------------------------------
 
-LOSS_ARCHS = ["yi-6b", "moonshot-v1-16b-a3b", "internvl2-76b", "mamba2-1.3b",
-              "jamba-1.5-large-398b"]
+LOSS_ARCHS = ["yi-6b", "gemma3-12b", "moonshot-v1-16b-a3b", "internvl2-76b",
+              "mamba2-1.3b", "jamba-1.5-large-398b"]
 
 
 def _pair(arch, seed=0):
