@@ -17,9 +17,10 @@
    435,413 pairs, the same rows at 32 and 64 lanes, the funnel's largest
    verify batch (4,096 x 128) and a slice 4 bytes off 16-byte alignment,
    each on its route, warm and cold.  Outputs must match bit for bit.
-   ``tanimoto`` top-k against its plain version,
-   scores as raw float32 bits and rows exactly, one launch a call, each k
-   timed warm beside its bound (``kernels/work.py`` ``tanimoto_work``) and
+   ``tanimoto`` top-k against its plain version (run once a case, at its
+   largest k, whose list in its total order holds every smaller k's as its
+   first entries), scores as raw float32 bits and rows exactly, one launch
+   a call, each k timed warm beside its bound (``kernels/work.py`` ``tanimoto_work``) and
    its share of it, with the plan's route, queries a block and slices:
    ``pubchem``, a plane of 176,929,690 random 1,024-bit fingerprints
    (22.6 GB, generated on the card in chunks) screened by 64 queries at
@@ -42,8 +43,12 @@
    12, S = 1,500, D = 64: 11 key tiles and one of 92) and its cross
    attention (Sq = 416 against Skv = 1,500), SDPA timed without a mask;
    and at the served prefills of gemma3-12b (B = 8, Hq = 16, Hkv = 8, S =
-   2,048, D = 256: window 1,024 and global) and internvl2-76b (B = 8, Hq = 64, Hkv =
-   8, S = 256 image positions + 2,048 = 2,304, D = 128, causal).
+   2,048, D = 256: window 1,024 and global), internvl2-76b (B = 8, Hq = 64, Hkv =
+   8, S = 256 image positions + 2,048 = 2,304, D = 128, causal),
+   qwen3-moe-235b-a22b (B = 8, Hq = 64, Hkv = 4: 16 query heads a KV head,
+   S = 2,048, D = 128, causal) and jamba-1.5-large-398b's attention layer
+   (B = 8, Hq = 64, Hkv = 8, S = 2,048, D = 128, causal), each timed warm
+   and with L2 flushed before each launch.
    At every attention shape the kernel also runs as training calls it,
    writing the rows' log-sum-exp: the output must be bit-identical and the
    lse within 1e-5 (1 + |lse|) of ``attention_lse_ref`` (+inf exactly
@@ -61,7 +66,9 @@
    card could take (its bound).  ``ssd_scan`` against its plain version,
    bit for bit, in float32 at mamba2-1.3b's served prefill shape (BH =
    8 x 64 heads, C = 8 chunks of 256, P = 64, N = 128) and at one
-   65,536-token prompt's (BH = 64, C = 256); states from ``randn``, decay
+   65,536-token prompt's (BH = 64, C = 256) and at jamba-1.5-large-398b's
+   served prefill (BH = 8 x 256 heads, C = 8), warm and L2-cold; states
+   from ``randn``, decay
    uniform in [0, 1); no PyTorch call computes the scan (``library_ms``
    null).  ``sample`` (``csrc/sample.cu``, the reference's
    ``jax.random.categorical`` draw) against its plain version at yi-6b's
@@ -150,13 +157,12 @@
    static engine's, prefix on equals off (a differing token passes only
    where both tokens lie within ``NEAR_TIE`` of the top logit, printed),
    and suffix-prefill logits lie within ``SUFFIX_ATOL`` of full prefill's.
-7. A model check of the recurrent families, in float32 with TF32 off,
-   weights made once and loaded into a card model and a CPU model:
-   mamba2-1.3b at full width cut to 2 layers, and jamba-1.5-large-398b's
-   smoke config (no hybrid config of the repo fits one card).  The prefill
-   logits of two ragged corpus prompts (601 and 98 tokens) must agree
-   within ``MODEL_ATOL``/``MODEL_RTOL``; ``ssd_scan`` must launch once per
-   Mamba layer, and on the hybrid ``flash_attention`` once per super-block.
+7. A model check of the SSM family, in float32 with TF32 off, weights
+   made once and loaded into a card model and a CPU model: mamba2-1.3b at
+   full width cut to 2 layers.  The prefill logits of two ragged corpus
+   prompts (601 and 98 tokens) must agree within
+   ``MODEL_ATOL``/``MODEL_RTOL``; ``ssd_scan`` must launch once per Mamba
+   layer.  (The hybrid's check is step 9c's.)
 8. SSM serving through ``repro_torch.launch.serve.run``: mamba2-1.3b at
    its published widths and full depth (48 layers, d_model 2,048, 64 SSD
    heads of 64, state 128), bfloat16, random weights drawn on the card
@@ -164,9 +170,7 @@
    twice: the two runs must give the same tokens, and ``ssd_scan`` must
    have launched exactly 48 times per prefill and never in decode (launch
    counts set to 0 just before the phase).  Then the served engine under
-   ``torch.profiler`` and the eager/graph turns, as in step 6; then the
-   same turns on jamba's smoke config (attention, Mamba and MoE layers,
-   weights drawn on the card).
+   ``torch.profiler`` and the eager/graph turns, as in step 6.
 9. Encoder-decoder: whisper-small at full width cut to 2 encoder and 2
    decoder layers, float32 with TF32 off, one set of weights on the card
    and the CPU, the same seeded random frames (2 x 1,500 x 768) and two
@@ -198,7 +202,36 @@
    the launcher has no depth option; the engine's stub feeds zero patch
    embeddings, positions start at 256):
    the same tokens over 2 runs, 48 and 16 tensor-core launches a prefill,
-   none in decode, the profile and the eager/graph turns.
+   none in decode, the profile and the eager/graph turns.  internvl2-76b's
+   16 served layers (the same weights) then serve the 8 prompts through
+   ``ContinuousEngine``, each behind its 256 image positions (``max_len``
+   2,080 + 256, so the block tables hold them; prefix sharing off, as in
+   the reference): every request completes, 16 tensor-core launches a
+   prefill, every decode step a graph replay, SLO percentiles and
+   ``counters()`` printed, a clean ``BlockManager.check()`` and no block in
+   use after ``close(drain=True)``, and the eager/graph turns; and at 2
+   layers in float32 the continuous engine's greedy tokens equal the
+   static engine's (a differing token only at a printed near-tie).
+9c. The hybrid and the 128-expert MoE at their published widths, cut in
+   depth (``HYBRID_CHECK_CUT``, ``HYBRID_SERVE_CUT``: jamba's depth through
+   its super-block, its layers those of the published one).  float32 card
+   against CPU, weights drawn on the card and copied to the host (its
+   ``MemAvailable`` printed first): jamba-1.5-large-398b's layers 2-3
+   (Mamba + SwiGLU, attention + MoE; 11.9e9 parameters) on the 601- and
+   98-token prompts (3 SSD chunks of 256), and qwen3-moe-235b-a22b at 2
+   layers (128 experts of d_ff 1,536, top 8; 64 query heads of 128 to 4
+   KV heads, a query width twice d_model): the router's top-k first (a
+   flip passes only at a ``MOE_NEAR_TIE`` gap), then prefill logits and
+   every layer's cache (K/V, and the Mamba layer's SSM state and
+   convolution tail) within ``MODEL_ATOL``/``MODEL_RTOL``, dropped
+   assignments equal, 1 + 1 and 2 kernel launches.  Then each served as in
+   step 6, bf16: jamba's layers 0-3 (Mamba + SwiGLU, Mamba + MoE, Mamba +
+   SwiGLU, attention + MoE; 45.96 GB: d_model 8,192, 256 SSD heads, 16
+   experts of d_ff 24,576, top 2) with 1 tensor-core ``flash_attention``
+   and 3 ``ssd_scan`` launches a prefill, and qwen3-moe at 8 of its 94
+   layers (42.3 GB) with 8: the same tokens over 2 runs, none in decode,
+   the profile, the eager/graph turns, and the graph decode's ITL beside
+   the step's weight-read bound (the weights' bytes over 3.35 TB/s).
 10. MoE: moonshot-v1-16b-a3b at full width cut to 2 layers, float32, card
    against CPU: the router's top-6 experts first (flips only at a
    probability near-tie pass), then prefill logits within
@@ -239,14 +272,14 @@
    (``build``, then ``Trainer.run``; B = 4 x 2,048 tokens of the
    index-backed corpus, bf16 compute over float32 masters and moments):
    mamba2-1.3b at 48 layers for 5 steps and yi-6b cut to 4 of its 32
-   layers for 3 (its 6.06B parameters with float32
+   layers for 3 without a checkpoint (its 6.06B parameters with float32
    moments need about 97 GB: more than the card), under the remat policy
    "names" (the default), with step ms, tokens/s,
    peak memory, every kernel's launches a step (144 ``ssd_scan``, 8
    tensor-core ``flash_attention``, 4 backward kernels), one more step
    under the profiler (the attention backward's share, by span and by its
    kernels' names) and the final checkpoint's seconds
-   and bytes (then deleted); then 3 more steps of the same state under
+   and bytes (mamba2's; then deleted); then 3 more steps of the same state under
    "nothing" (no checkpoint), with the same launches a step (under both
    policies the attention forward and the scan run again in the backward:
    PERF.md's derivation), step ms, tokens/s and peak memory.  Then
@@ -286,11 +319,14 @@
    serving phase's:
    ``hash_mix`` in the service, ``digest_ids`` and training's batch
    verify, ``flash_attention`` in yi-6b's static and continuous serving,
-   whisper-small's, gemma3-12b's, internvl2-76b's, moonshot's, training
-   (gemma3's included, as in the backward's) and the mesh phase,
-   ``ssd_scan`` in serving, training and the mesh trainer; kernel bounds from
-   ``repro_torch.kernels.work``, the dry-run's own formulas), the
-   card line, and as the last line ``{"ok": true, "device": {...}}``.
+   whisper-small's, gemma3-12b's, internvl2-76b's static and continuous,
+   jamba's, qwen3-moe's, moonshot's, training (gemma3's included, as in
+   the backward's) and the mesh phase, ``ssd_scan`` in mamba2's and
+   jamba's serving, training and the mesh trainer; kernel bounds from
+   ``repro_torch.kernels.work``, the dry-run's own formulas; ``tanimoto``'s
+   numbers are the ``pubchem`` case at k = 1,024, where its plain version
+   is timed), the card line, and as the last line ``{"ok": true,
+   "device": {...}}``.
    Any failure exits non-zero before it.
 
 Needs one CUDA card; exits non-zero without one.
@@ -387,6 +423,10 @@ FA_MOONSHOT = FaCase("moonshot-v1-16b-a3b", 8, 16, 16, 2048, 2048, 128)
 FA_GEMMA_SERVED = FaCase("gemma3-12b served", 8, 16, 8, 2048, 2048, 256, window=1024)
 FA_GEMMA_SERVED_GLOBAL = FaCase("gemma3-12b served global", 8, 16, 8, 2048, 2048, 256)
 FA_VLM_SERVED = FaCase("internvl2-76b served", 8, 64, 8, 2304, 2304, 128)
+# the served prefills of qwen3-moe-235b-a22b (64 query heads to 4 KV heads:
+# 16 a group) and of jamba-1.5-large-398b's attention layer (64:8)
+FA_QWEN3_SERVED = FaCase("qwen3-moe-235b-a22b served", 8, 64, 4, 2048, 2048, 128)
+FA_HYBRID_SERVED = FaCase("jamba-1.5-large-398b served", 8, 64, 8, 2048, 2048, 128)
 FA_SUFFIX = (FaCase("yi-6b suffix", 1, 32, 4, 512, 2048, 128, paged=True),
              FaCase("yi-6b suffix short", 1, 32, 4, 48, 1072, 128, paged=True),
              FaCase("yi-6b suffix unaligned", 1, 32, 4, 208, 1248, 128, paged=True))
@@ -416,6 +456,9 @@ F32_FLOPS_PER_S = 67e12    # float32 on the CUDA cores (H100 SXM)
 # 65,536-token prompt (256 chunks)
 SSD_PREFILL = ("prefill", 512, 8, 64, 128)
 SSD_LONG = ("long-prompt", 64, 256, 64, 128)
+# jamba-1.5-large-398b's served prefill: B = 8 x 256 SSD heads (d_inner
+# 16,384 in heads of 64), the same 8 chunks
+SSD_HYBRID = ("jamba prefill", 2048, 8, 64, 128)
 MODEL_LAYERS = 2           # the model check's depth cut
 SSM_MODEL_LENGTHS = (600, 97)  # prompt bytes: 601 tokens span 3 chunks of 256
 MODEL_ATOL = MODEL_RTOL = 1e-3  # float32 logits, card vs CPU, 2 layers
@@ -424,7 +467,22 @@ CHUNKED_MAX_LEN = 16_384   # the long-context cache of the DECODE_CHUNKED readin
 # one-pass path does, so its error against float32 is of the same size:
 # at most twice the one-pass path's on the same step
 CHUNKED_ERR_RATIO = 2.0
-HYBRID = "jamba-1.5-large-398b"  # its smoke config: no hybrid config fits one card
+# jamba-1.5-large-398b (the hybrid family) and qwen3-moe-235b-a22b (128
+# experts, top 8, a query width of 2 x d_model, 64:4 GQA) at their published
+# widths, cut in depth: the whole of either does not fit one card (nor four:
+# jamba's bf16 weights are 796 GB).  jamba's depth is cut through its
+# super-block (both packages need n_layers % hybrid_block == 0), moe_every
+# kept at 2 and attn_index set so that the layers are the published
+# super-block's: its layers 2-3 for the f32 check (Mamba + SwiGLU, then
+# attention + MoE: 11.9e9 parameters, ~47.6 GB a side), its layers 0-3
+# served (Mamba + SwiGLU, Mamba + MoE, Mamba + SwiGLU, attention + MoE:
+# 22.98e9 parameters, ~45.96 GB in bf16).  qwen3-moe: 2 layers checked, 8
+# of its 94 served (21.15e9 parameters, ~42.3 GB in bf16).
+HYBRID = "jamba-1.5-large-398b"
+HYBRID_CHECK_CUT = dict(n_layers=2, hybrid_block=2, attn_index=1)
+HYBRID_SERVE_CUT = dict(n_layers=4, hybrid_block=4, attn_index=3)
+QWEN3_MOE = "qwen3-moe-235b-a22b"
+QWEN3_MOE_SERVE_LAYERS = 8
 # gemma3-12b and internvl2-76b on the card.  The model check cuts gemma3 to
 # one window layer and one global layer (local_block 2, as the reference's
 # smoke cut does), its window the published 1,024, and its long prompt
@@ -683,25 +741,39 @@ def tanimoto_case(name, q, db, dc, ks, reps, popc_rate, served=False):
     """Hold tanimoto's kernel to its plain version, bit for bit, at each k,
     one launch a call; time each k warm (or, ``served``, queued behind a
     sleep, and on the host per call) beside its bound, with the plan it
-    took.  Returns the first k's numbers."""
+    took.  The plain version runs once, at the largest k, and is timed
+    there: its list is in one total order (score descending, then row
+    ascending; pads last), checked here, so its first k entries are its
+    top-k for every smaller k (over the PubChem plane one plain call takes
+    ~42 s whatever k).  Returns the largest k's numbers."""
     from repro_torch.kernels.tanimoto.kernel import plan, tanimoto_topk_cuda
-    from repro_torch.kernels.tanimoto.ref import row_counts, tanimoto_topk_ref
+    from repro_torch.kernels.tanimoto.ref import (
+        PAD_INDEX, pack_keys, row_counts, tanimoto_topk_ref)
     from repro_torch.kernels.work import tanimoto_work
 
     qc = row_counts(q)
     n, w = db.shape
     nq = q.shape[0]
     chunk = max(1 << 16, PLAIN_ELEMS // nq)  # bounds the plain version's blocks
+    top = max(ks)
+    (s_all, i_all), plain = timed(
+        lambda: tanimoto_topk_ref(q, db, top, qc, dc, db_chunk=chunk))
+    real = i_all != PAD_INDEX
+    keys = pack_keys(s_all.clamp(min=0.0), i_all.clamp(min=0))
+    ordered = (keys[:, 1:] < keys[:, :-1]) | ~real[:, 1:]
+    if not bool((ordered & (real[:, :-1] | ~real[:, 1:])).all()):
+        fail(f"tanimoto {name}: the plain version's top-{top} is not in its total "
+             "order (score descending, row ascending, pads last)")
+    del keys, ordered, real
     out = None
-    for k in ks:
+    for k in sorted(ks, reverse=True):
         before = tanimoto_topk_cuda.launches
         s_k, i_k = tanimoto_topk_cuda(q, db, k, qc, dc)
         torch.cuda.synchronize()
         if tanimoto_topk_cuda.launches != before + 1:
             fail(f"tanimoto {name} k={k}: the call did not count one launch")
-        (s_r, i_r), plain = timed(
-            lambda: tanimoto_topk_ref(q, db, k, qc, dc, db_chunk=chunk))
-        bits_k, bits_r = s_k.view(torch.int32), s_r.view(torch.int32)
+        s_r, i_r = s_all[:, :k], i_all[:, :k]
+        bits_k, bits_r = s_k.view(torch.int32), s_r.contiguous().view(torch.int32)
         if not (torch.equal(bits_k, bits_r) and torch.equal(i_k, i_r)):
             bad = int((bits_k != bits_r).sum() + (i_k != i_r).sum())
             fail(f"tanimoto {name} k={k}: kernel disagrees with plain version "
@@ -720,7 +792,8 @@ def tanimoto_case(name, q, db, dc, ks, reps, popc_rate, served=False):
               f"({ties} equal-score neighbours in the top-k); route={p.route} "
               f"queries_per_block={p.qpb} slices={p.slices} width={p.width}; "
               f"kernel_ms={ms:.6f} ({'queued' if served else 'warm'}){host} "
-              f"plain_ms={plain:.6f} library_ms=null bytes={nbytes} "
+              f"plain_ms={plain:.6f} (one call at k={top}, its first {k} entries "
+              f"held here) library_ms=null bytes={nbytes} "
               f"popcounts={ops} popc_per_s={popc_rate:.4g} bound_ms={b:.6f} ({by}) "
               f"share_of_bound={b / ms:.4f}", flush=True)
         if out is None:
@@ -728,6 +801,7 @@ def tanimoto_case(name, q, db, dc, ks, reps, popc_rate, served=False):
                        bound_by=by, max_abs_err=err)
         out["max_abs_err"] = max(out["max_abs_err"], err)
         del s_k, i_k, s_r, i_r, bits_k, bits_r
+    del s_all, i_all
     return out
 
 
@@ -958,6 +1032,9 @@ def attention_case(case: FaCase, seed: int):
     ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **mode), 20, warmup=2)
     if flash_attention_cuda.tc_launches - before != 22:
         fail(f"flash_attention {name}: timed launches left the tensor-core route")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    cold = cold_ms(lambda: flash_attention_cuda(q, k, v, **mode), 10, flush)
+    del flush
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **mode), 2, warmup=1)
     library = cuda_ms(sdpa, 20, warmup=2)
     # the visible (query, key) pairs of this mask, two products of D each
@@ -968,12 +1045,13 @@ def attention_case(case: FaCase, seed: int):
     print(f"flash_attention[{name}]: B={b} Hq={hq} Hkv={hkv} Sq={s} Skv={sk} D={d} "
           f"window={window} bf16 {'causal' if causal else 'non-causal'} "
           f"max_abs_err={err:.6g} ({tol}); "
-          f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms(sdpa)={library:.6f} "
+          f"kernel_ms={ms:.6f} (L2 cold {cold:.6f}) plain_ms={plain:.6f} "
+          f"library_ms(sdpa)={library:.6f} "
           f"flops={flops} bytes={nbytes} bound_ms={bnd:.6f} ({by}) "
           f"tflops={flops / ms / 1e9:.1f}", flush=True)
     del q, k, v, mask
     torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bnd,
+    return dict(ms=ms, cold_ms=cold, plain_ms=plain, library_ms=library, bound_ms=bnd,
                 bound_by=by, max_abs_err=err)
 
 
@@ -1031,18 +1109,21 @@ def ssd_scan_case(case, seed: int):
     err = float((got - want).abs().max())
     del got, want
     ms = cuda_ms(lambda: ssd_scan_cuda(states, decay), 20)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    cold = cold_ms(lambda: ssd_scan_cuda(states, decay), 10, flush)
+    del flush
     plain = cuda_ms(lambda: ssd_scan_ref(states, decay), 3, warmup=1)
     flops, nbytes = scan_work(bh, c, p, n)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     print(f"ssd_scan[{name}]: BH={bh} C={c} P={p} N={n} f32 bit-exact; "
-          f"kernel_ms={ms:.6f} plain_ms={plain:.6f} library_ms=null (no PyTorch "
-          f"call computes this scan) bytes={nbytes} flops={flops} "
-          f"bound_ms={bnd:.6f} ({by})", flush=True)
+          f"kernel_ms={ms:.6f} (L2 cold {cold:.6f}) plain_ms={plain:.6f} "
+          f"library_ms=null (no PyTorch call computes this scan) bytes={nbytes} "
+          f"flops={flops} bound_ms={bnd:.6f} ({by})", flush=True)
     del states, decay
     torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+    return dict(ms=ms, cold_ms=cold, plain_ms=plain, library_ms=None, bound_ms=bnd,
                 bound_by=by, max_abs_err=err)
 
 
@@ -1248,12 +1329,12 @@ def model_cases():
     """The model checks, in float32, as ``{phase: [(name, cfg, init,
     prefill, prompt bytes, kernel launches wanted), ...]}``: yi-6b,
     mamba2-1.3b, gemma3-12b (one window and one global layer) and
-    internvl2-76b at full width cut to ``MODEL_LAYERS`` layers, and jamba's
-    smoke config (no hybrid config of the repo fits one card)."""
+    internvl2-76b at full width cut to ``MODEL_LAYERS`` layers.  The
+    routed families (MoE, hybrid) have their own check
+    (:func:`moe_model_check`)."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models.hybrid import _layout, hybrid_prefill, init_hybrid
     from repro_torch.models.ssm import init_ssm, ssm_prefill
     from repro_torch.models.transformer import init_lm, lm_prefill
 
@@ -1261,9 +1342,6 @@ def model_cases():
         return dataclasses.replace(get_config(arch), n_layers=MODEL_LAYERS,
                                    dtype="float32")
 
-    jamba = dataclasses.replace(get_config("jamba-1.5-large-398b").smoke(),
-                                dtype="float32")
-    n_blocks, _, mamba_pos, _, _ = _layout(jamba)
     gemma = dataclasses.replace(cut(GEMMA), local_block=MODEL_LAYERS)
     vlm = cut(VLM)
     return {
@@ -1279,17 +1357,14 @@ def model_cases():
         "recurrent": [
             ("mamba2-1.3b full width, 2 layers", cut("mamba2-1.3b"), init_ssm,
              ssm_prefill, SSM_MODEL_LENGTHS, {"ssd_scan": MODEL_LAYERS}),
-            ("jamba-1.5-large-398b smoke", jamba, init_hybrid, hybrid_prefill,
-             SSM_MODEL_LENGTHS, {"flash_attention": n_blocks,
-                                 "ssd_scan": n_blocks * len(mamba_pos)}),
         ],
     }
 
 
 def model_phase(work: Path, seed: int, cases, wrappers) -> None:
     """For each case: weights drawn once on the card from ``seed`` and
-    copied to the CPU (drawn on the CPU, they took most of a full-width
-    check's time), prefill logits of two ragged corpus prompts on the card
+    copied to the CPU (:func:`cpu_copy`; drawn on the CPU, they took most
+    of a full-width check's time), prefill logits of two ragged corpus prompts on the card
     against the CPU's, in float32 with TF32 off, and the card's kernel launches
     (``wrappers``' counts) against the ones wanted.  On the VLM both read
     the same seeded nonzero patch embeddings (``torch.Generator`` on the
@@ -1297,14 +1372,12 @@ def model_phase(work: Path, seed: int, cases, wrappers) -> None:
     card must match the CPU's within the same tolerances too: on a window
     layer that the long prompt passes, the ring of its last ``window``
     positions."""
-    import copy
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for name, cfg, init, prefill, lengths, want_launches in cases:
         t0 = time.perf_counter()
         card_model = init(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-        cpu_model = copy.deepcopy(card_model).to("cpu")
+        cpu_model = cpu_copy(card_model)
         toks, lens = prompt_batch(corpus_prompts(work, lengths))
         extra = {}
         if cfg.family == "vlm":
@@ -1350,31 +1423,53 @@ def model_phase(work: Path, seed: int, cases, wrappers) -> None:
         torch.cuda.empty_cache()
 
 
-def prefill_launches(cfg) -> int:
-    """The model kernel's launches in one prefill: one per layer, and on
-    the encoder-decoder family one per encoder layer and two per decoder
-    layer (self and cross attention)."""
+def model_wrappers() -> dict:
+    """The model kernels' wrappers by name, whose counts the phases read."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    return {"flash_attention": flash_attention_cuda, "ssd_scan": ssd_scan_cuda}
+
+
+def prefill_launches(cfg) -> dict:
+    """Each model kernel's launches in one prefill: ``flash_attention`` once
+    per attention layer (on the encoder-decoder family once per encoder
+    layer and twice per decoder layer, self and cross attention),
+    ``ssd_scan`` once per Mamba layer; the hybrid has ``n_blocks``
+    attention layers and ``n_blocks · len(mamba_pos)`` Mamba layers."""
     if cfg.family == "encdec":
-        return cfg.n_enc_layers + 2 * cfg.n_layers
-    return cfg.n_layers
+        return {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers}
+    if cfg.family == "ssm":
+        return {"ssd_scan": cfg.n_layers}
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import _layout
+
+        n_blocks, _, mamba_pos, _, _ = _layout(cfg)
+        return {"flash_attention": n_blocks, "ssd_scan": n_blocks * len(mamba_pos)}
+    return {"flash_attention": cfg.n_layers}
 
 
-def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
+def lm_serving_phase(work: Path, seed: int, arch: str, card: str,
                      max_len: int = SERVE_MAX_LEN, lengths=SERVE_LENGTHS,
-                     layers: Optional[int] = None):
+                     cut: Optional[dict] = None):
     """``arch`` at its published widths and full depth, bfloat16, through
-    launch.serve.run (with ``layers``, its published config cut to that
-    depth: the launcher has no depth option) with the corpus prompts of
-    ``lengths`` bytes;
-    ``wrapper``'s kernel must launch exactly ``prefill_launches`` times per
-    prefill and never in decode.  Returns its launches over the phase, the
-    served engine (for callers that go on serving its model) and the runs
-    (tokens, prefill and decode timings)."""
+    launch.serve.run (with ``cut``, its published config with those fields
+    replaced, the depth cut: the launcher has no depth option) with the
+    corpus prompts of ``lengths`` bytes; each model kernel must launch
+    exactly ``prefill_launches`` times per prefill (``flash_attention``
+    all on the tensor-core route) and never in decode.  Prints the
+    weights' bytes, the phase's own peak, prefill ms, and the graph
+    decode's ITL beside the step's weight-read bound (every weight read
+    once a step: MoE decode sizes each expert's slots to the batch, so it
+    reads every expert).  Returns each kernel's launches over the phase,
+    the served engine (for callers that go on serving its model) and the
+    runs (tokens, prefill and decode timings)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.moe import MoE, monitor
 
-    name = wrapper.__name__.removesuffix("_cuda")
+    wrappers = model_wrappers()
+    fa = wrappers["flash_attention"]
     prompts = corpus_prompts(work, lengths)
     args = serve.build_parser().parse_args([
         "--arch", arch, "--full-config", "--device", "cuda",
@@ -1383,15 +1478,12 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
     ])
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    wrapper.launches = 0
-    routed = hasattr(wrapper, "tc_launches")  # flash_attention: two routes
-    if routed:
-        wrapper.tc_launches = 0
+    reset_launches(wrappers.values())
     t0 = time.perf_counter()
-    out = serve.run(args, None if layers is None else
-                    dataclasses.replace(get_config(arch), n_layers=layers))
-    launches = wrapper.launches
-    tc_launches = wrapper.tc_launches if routed else None
+    out = serve.run(args, None if cut is None else
+                    dataclasses.replace(get_config(arch), **cut))
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    tc_launches = fa.tc_launches
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     runs = out["runs"]
@@ -1403,13 +1495,14 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
             fail(f"{arch} serving: bad token row {row[:8]}")
     engine = out.pop("engine")
     per_prefill = prefill_launches(engine.cfg)
-    want = 2 * per_prefill
-    if launches != want:
-        fail(f"{arch} serving: {launches} {name} launches, want {want} "
-             f"({per_prefill} per prefill, none in decode)")
-    if routed and tc_launches != want:
-        fail(f"{arch} serving: {tc_launches} of {launches} {name} launches on "
-             f"the tensor-core route, want all")
+    for name, n in launches.items():
+        want = 2 * per_prefill.get(name, 0)
+        if n != want:
+            fail(f"{arch} serving: {n} {name} launches, want {want} "
+                 f"({per_prefill.get(name, 0)} per prefill, none in decode)")
+    if tc_launches != launches["flash_attention"]:
+        fail(f"{arch} serving: {tc_launches} of {launches['flash_attention']} "
+             "flash_attention launches on the tensor-core route, want all")
     for i, r in enumerate(runs):
         print(f"lm_serving[{arch}] run {i}: B={out['batch']} prompt tokens "
               f"{out['prompt_tokens']}; prefill_ms={r['prefill_ms']:.3f} "
@@ -1417,7 +1510,8 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
               f"{r['decode_tokens_per_s']:.1f} tokens/s; card: {card}", flush=True)
     extra = ""
     if engine.cfg.family == "encdec":
-        extra = encdec_cache_check(engine, prompts, wrapper, max_len, per_prefill)
+        extra = encdec_cache_check(engine, prompts, fa, max_len,
+                                   per_prefill["flash_attention"])
     if any(isinstance(m, MoE) for m in engine.model.modules()):
         # the served prefill again, its routing recorded (decode drops nothing)
         toks, lens = engine._pad_prompts([engine.tok.encode(p, add_eos=False)
@@ -1427,25 +1521,34 @@ def lm_serving_phase(work: Path, seed: int, arch: str, wrapper, card: str,
                 "tokens": torch.from_numpy(toks).cuda(),
                 "lengths": torch.from_numpy(lens).cuda()}, max_len=max_len)
         extra = (f"; MoE assignments dropped in one prefill (B={len(prompts)} x "
-               f"{toks.shape[1]} tokens, {len(calls)} MoE layers): "
-               f"{int(sum(c.dropped for c in calls))} (decode: no drop)")
+                 f"{toks.shape[1]} tokens, {len(calls)} MoE layers): "
+                 f"{int(sum(c.dropped for c in calls))} (decode: no drop)")
         del calls
+    counts = ", ".join(f"{n} launches {launches[n]} ({k} per prefill)"
+                       for n, k in per_prefill.items())
     print(f"lm_serving[{arch}]: {out['n_layers']} layers bf16, init "
           f"{out['init_s']:.1f} s, weight_bytes={out['weight_bytes']} "
           f"cache_bytes={out['kv_cache_bytes']} (summed over the cache prefill "
           f"allocated, max_len {max_len}) peak_allocated={peak} "
           f"(allocated at the phase's start: {base}; own peak "
-          f"{peak - base}); {name} launches "
-          f"{launches} ({per_prefill} per prefill"
-          f"{f', {tc_launches} on the tensor-core route' if routed else ''})"
-          f"{extra}; tokens identical over 2 runs; {secs:.1f} s", flush=True)
+          f"{peak - base}); {counts}, flash_attention {tc_launches} on the "
+          f"tensor-core route{extra}; tokens identical over 2 runs; {secs:.1f} s",
+          flush=True)
     profile_generate(engine, prompts, card, f"{arch} graph")
-    before = wrapper.launches
-    static_alternation(arch, engine, prompts, card)
-    alt = wrapper.launches - before
-    if alt != 4 * per_prefill + per_prefill:   # 4 runs and the eager profile
-        fail(f"{arch} alternation: {alt} {name} launches in 5 generate calls, want "
-             f"{5 * per_prefill} ({per_prefill} per prefill, none in decode)")
+    before = {n: fn.launches for n, fn in wrappers.items()}
+    rates = static_alternation(arch, engine, prompts, card)
+    for name, fn in wrappers.items():
+        alt = fn.launches - before[name]
+        want = 5 * per_prefill.get(name, 0)   # 4 runs and the eager profile
+        if alt != want:
+            fail(f"{arch} alternation: {alt} {name} launches in 5 generate calls, "
+                 f"want {want} ({per_prefill.get(name, 0)} per prefill, none in decode)")
+    bound = out["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    itl = rates["itl"]["graph"]
+    print(f"decode[{arch}]: graph ITL p50 {', '.join(f'{x:.3f}' for x in itl)} ms "
+          f"against the step's weight-read bound {bound:.3f} ms (weight_bytes "
+          f"{out['weight_bytes']} / 3.35 TB/s, every weight read once a step): "
+          f"{bound / float(np.mean(itl)):.4f} of it; card: {card}", flush=True)
     del out
     torch.cuda.empty_cache()
     return launches, engine, runs
@@ -1634,7 +1737,7 @@ def decode_alternation(label: str, engines: dict, run, card: str) -> dict:
     Tokens must be identical over all four runs.  Prints, per run, tokens/s
     (host clock), ITL p50/p99, the busy share (:class:`StepClock`), capture
     ms, replays and the run's own peak.  Returns each mode's rates."""
-    tokens, rates = {}, {"eager": [], "graph": []}
+    tokens, rates = {}, {"eager": [], "graph": [], "itl": {"eager": [], "graph": []}}
     for mode in ("eager", "graph", "eager", "graph"):
         eng = engines[mode]
         caps, reps = eng.captures, eng.replays
@@ -1653,6 +1756,7 @@ def decode_alternation(label: str, engines: dict, run, card: str) -> dict:
             fail(f"decode[{label}]: the {mode} engine's two runs gave different tokens")
         rate = n_tokens / secs
         rates[mode].append(rate)
+        rates["itl"][mode].append(itl[0])
         cap = (f"captured {eng.captures - caps} in {eng.capture_s * 1e3:.1f} ms"
                if eng.captures > caps else "no capture")
         if mode == "graph":
@@ -1699,20 +1803,22 @@ def static_alternation(label: str, graph_engine, prompts, card: str) -> dict:
 
 
 def continuous_alternation(label: str, cfg, model, prompts, card: str,
-                           sampled: bool = False) -> dict:
+                           sampled: bool = False, max_len: Optional[int] = None) -> dict:
     """:func:`decode_alternation` of ``ContinuousEngine``s on one model,
     greedy (profiled after the turns) or ``sampled`` (the request seeds
     ``SAMPLE_SEED + i``, temperature ``SAMPLE_TEMPERATURE``, top-k
     ``SAMPLE_TOP_K``): an eager one and a graph one, each with its own pool
-    and the prefix cache off (a suffix prefill would change bf16 rounding),
-    the ``CONT_SLOTS`` prompts at once, so every lane decodes.  ITL from
+    of ``max_len`` rows a slot (``CONT_MAX_LEN`` by default) and the prefix
+    cache off (a suffix prefill would change bf16 rounding), the
+    ``CONT_SLOTS`` prompts at once, so every lane decodes.  ITL from
     the engine's own windows (host clock).  The rates carry the engines'
     prefills, eager steps and captures under ``"work"``."""
     from repro_torch.launch.serve import paged_spec
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.scheduler import ContinuousEngine
 
-    spec = paged_spec(CONT_MAX_LEN, CONT_BLOCK, CONT_SLOTS, prefix_cache=False)
+    spec = paged_spec(max_len or CONT_MAX_LEN, CONT_BLOCK, CONT_SLOTS,
+                      prefix_cache=False)
     scfg = ServeConfig(max_new_tokens=SERVE_NEW_TOKENS, max_len=spec.max_len)
     if sampled:
         scfg = dataclasses.replace(scfg, greedy=False, temperature=SAMPLE_TEMPERATURE,
@@ -2017,24 +2123,6 @@ def chunked_decode_reading(engine, prompts, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def hybrid_alternation(work: Path, seed: int, card: str) -> None:
-    """jamba's smoke config (attention, Mamba and MoE layers) drawn on the
-    card from ``seed``, the 8 serving prompts: :func:`static_alternation`."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import Engine, ServeConfig
-
-    cfg = get_config(HYBRID).smoke()
-    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
-                                  "cuda")
-    graph = Engine(cfg, model, ServeConfig(max_new_tokens=SERVE_NEW_TOKENS,
-                                           max_len=SERVE_MAX_LEN), device="cuda")
-    static_alternation(f"{HYBRID} smoke", graph, corpus_prompts(work, SERVE_LENGTHS),
-                       card)
-    del graph, model
-    torch.cuda.empty_cache()
-
-
 def reuse_prompts(work: Path, prompts) -> list:
     """The ``REUSE`` prompts: BOS plus the first ``prefix - 1`` bytes of a
     long corpus prompt (``prefix`` tokens, block-aligned), then a suffix cut
@@ -2220,11 +2308,15 @@ def continuous_serving_phase(work: Path, engine, static_tokens, card: str) -> in
 
 def near_tie(model, cfg, prompt_ids, common, tokens) -> float:
     """How far below the top logit the ``tokens`` lie at the step after
-    ``prompt_ids + common``, from a float32 prefill of batch 1 on the card."""
+    ``prompt_ids + common``, from a float32 prefill of batch 1 on the card
+    (on the VLM behind its zero patch embeddings, as the engines serve)."""
     from repro_torch.models.transformer import lm_prefill
 
     ids = torch.tensor([list(prompt_ids) + list(common)], device="cuda")
-    logits = lm_prefill(model, cfg, ids)[0][0].float()
+    image = None
+    if cfg.family == "vlm":   # the engines' stub: zero patch embeddings
+        image = torch.zeros((1, cfg.n_img_tokens, cfg.d_model), device="cuda")
+    logits = lm_prefill(model, cfg, ids, image)[0][0].float()
     top = logits.max()
     return max(float(top - logits[t]) for t in tokens)
 
@@ -2352,39 +2444,247 @@ def continuous_parity_phase(work: Path, seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def moe_model_check(work: Path, seed: int, card: str) -> None:
-    """moonshot-v1-16b-a3b at full width cut to ``MODEL_LAYERS`` layers, in
-    float32 with TF32 off, weights drawn on the card and copied to the
-    CPU: the router's top-k experts first (a flip passes only at a
-    probability near-tie, and then the logits are not comparable), then
-    prefill logits within ``MODEL_ATOL``/``MODEL_RTOL``, dropped
-    assignments on both sides, and one ``flash_attention`` launch a
-    layer."""
-    import copy
-    import dataclasses
+def vlm_continuous_phase(work: Path, engine, card: str) -> int:
+    """internvl2-76b's served model (the static phase's weights: 16 layers,
+    bf16) through ``ContinuousEngine``: the 8 serving prompts, each behind
+    the 256 image positions (the stub's zero patch embeddings), so a
+    slot's block table holds 256 + prompt + new tokens (``max_len``
+    ``CONT_MAX_LEN`` + 256 rows); prefix sharing off, as in the reference
+    (image positions offset every position).  Every request completes,
+    one tensor-core ``flash_attention`` launch a layer a prefill, the
+    greedy step a CUDA graph replayed every decode step, SLO percentiles
+    and ``counters()`` printed; after ``close(drain=True)`` a clean
+    ``BlockManager.check()`` and no block in use; then the eager and graph
+    engines in turns (:func:`continuous_alternation`: graph == eager).
+    Returns the ``flash_attention`` launches of the served requests."""
+    from repro_torch.launch.serve import paged_spec
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import ContinuousEngine
 
+    fa = model_wrappers()["flash_attention"]
+    t0 = time.perf_counter()
+    cfg, model = engine.cfg, engine.model
+    prompts = corpus_prompts(work, SERVE_LENGTHS)
+    max_len = CONT_MAX_LEN + cfg.n_img_tokens
+    spec = paged_spec(max_len, CONT_BLOCK, CONT_SLOTS, prefix_cache=False)
+    rows = cfg.n_img_tokens + max(len(p.encode()) + 1 for p in prompts) + SERVE_NEW_TOKENS - 1
+    if spec.max_blocks_per_seq * CONT_BLOCK < rows:
+        fail(f"continuous {VLM}: {spec.max_blocks_per_seq} blocks of {CONT_BLOCK} a slot "
+             f"cannot hold {rows} rows (image positions, prompt and new tokens)")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(cfg, model, spec,
+                           ServeConfig(max_new_tokens=SERVE_NEW_TOKENS,
+                                       max_len=spec.max_len),
+                           prefix_cache=True, device="cuda")
+    if eng._index is not None:
+        fail(f"continuous {VLM}: prefix sharing is on behind image positions")
+    pool_bytes = sum(t.nbytes for layer in eng._cache for t in layer.values())
+    fa.launches = fa.tc_launches = 0
+    t1 = time.perf_counter()
+    res = eng.generate(prompts)
+    wall = time.perf_counter() - t1
+    launches, tc = fa.launches, fa.tc_launches
+    c = eng.counters()
+    n_tokens = sum(len(r.token_ids) for r in res)
+    peak = torch.cuda.max_memory_allocated()
+    if c["completed"] != len(prompts) or any(not r.token_ids for r in res):
+        fail(f"continuous {VLM}: {c['completed']:.0f} of {len(prompts)} requests "
+             f"completed, tokens {[len(r.token_ids) for r in res]}")
+    if launches != cfg.n_layers * len(prompts) or tc != launches:
+        fail(f"continuous {VLM}: {launches} flash_attention launches ({tc} "
+             f"tensor-core), want {cfg.n_layers * len(prompts)}, all tensor-core")
+    if eng.decode != "graph" or eng.replays != eng.stats.steps:
+        fail(f"continuous {VLM}: decode {eng.decode!r}, {eng.replays} replays for "
+             f"{eng.stats.steps} steps: the greedy step did not replay a CUDA graph")
+    print(f"continuous[{VLM}]: {cfg.n_layers} layers bf16, {cfg.n_img_tokens} image "
+          f"positions a request; {CONT_SLOTS} slots x {spec.max_blocks_per_seq} blocks "
+          f"of {CONT_BLOCK} (max_len {spec.max_len}), pool {spec.n_blocks} blocks = "
+          f"{pool_bytes} bytes; all {len(prompts)} requests completed in {wall:.3f} s, "
+          f"{n_tokens} tokens = {n_tokens / wall:.1f} tokens/s; {slo_text(eng)}; "
+          f"counters {json.dumps({k: round(v, 4) for k, v in c.items()})}; "
+          f"flash_attention {launches} launches (all tensor-core); prefix sharing "
+          f"off (image positions); peak_allocated={peak} (own {peak - base}); "
+          f"card: {card}", flush=True)
+    drain_and_check(eng, f"continuous[{VLM}]")
+    del eng
+    torch.cuda.empty_cache()
+    continuous_alternation(f"{VLM} continuous", cfg, model, prompts, card,
+                           max_len=max_len)
+    print(f"continuous[{VLM}]: {time.perf_counter() - t0:.1f} s for the phase",
+          flush=True)
+    return launches
+
+
+def vlm_continuous_parity(work: Path, seed: int, card: str) -> None:
+    """float32, internvl2-76b at full width cut to ``MODEL_LAYERS`` layers,
+    one set of weights on the card: ``ContinuousEngine``'s greedy tokens
+    (256 image positions in its block tables) equal the static
+    ``Engine``'s on the 8 serving prompts (a differing token only at a
+    printed near-tie, :func:`compare_tokens`)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.models.moe import monitor
-    from repro_torch.models.transformer import init_lm, lm_prefill
+    from repro_torch.launch.serve import paged_spec
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.scheduler import ContinuousEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
-                              n_layers=MODEL_LAYERS, dtype="float32")
-    card_model = init_lm(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    cpu_model = copy.deepcopy(card_model).to("cpu")
-    toks, lens = prompt_batch(corpus_prompts(work, (255, 97)))
+    cfg = dataclasses.replace(get_config(VLM), n_layers=MODEL_LAYERS, dtype="float32")
+    model = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(seed),
+                                  "cuda")
+    prompts = corpus_prompts(work, SERVE_LENGTHS)
+    spec = paged_spec(CONT_MAX_LEN + cfg.n_img_tokens, CONT_BLOCK, CONT_SLOTS,
+                      prefix_cache=False)
+    scfg = ServeConfig(max_new_tokens=PARITY_NEW_TOKENS, max_len=spec.max_len)
+    static = [r.token_ids for r in Engine(cfg, model, scfg, device="cuda").generate(prompts)]
+    eng = ContinuousEngine(cfg, model, spec, scfg, prefix_cache=False, device="cuda")
+    rows = [r.token_ids for r in eng.generate(prompts)]
+    drain_and_check(eng, f"parity[{VLM}]")
+    ties = compare_tokens(f"parity {VLM} continuous vs static", rows, static, model,
+                          cfg, prompts)
+    print(f"parity ({VLM} full width, {MODEL_LAYERS} layers, float32, allow_tf32=False, "
+          f"{cfg.n_img_tokens} image positions, {len(prompts)} prompts, "
+          f"{PARITY_NEW_TOKENS} new tokens): continuous == static with {ties} "
+          f"near-ties; {time.perf_counter() - t0:.1f} s; card: {card}", flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
+
+
+def host_mem_available() -> int:
+    """The host's ``MemAvailable`` in bytes (``/proc/meminfo``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return -1
+
+
+STAGE_BYTES = 256 << 20    # each of the two pinned buffers a host copy goes through
+# host memory a copy leaves free, and how long it waits for the host to hand
+# back what the previous check freed (the allocator returns it with a delay)
+HOST_MARGIN_BYTES = 12 << 30
+HOST_WAIT_S = 60
+
+
+def cpu_copy(model: torch.nn.Module) -> torch.nn.Module:
+    """A CPU copy of the card's ``model`` made without a second copy on the
+    card: every parameter and buffer copied to the host first, then the
+    modules around them (``copy.deepcopy`` finds the host tensors in its
+    memo).  ``copy.deepcopy(model).to("cpu")`` would hold the model twice
+    on the card, which a 47.6 GB model cannot.  It waits up to
+    ``HOST_WAIT_S`` for the host to have the copy's bytes and
+    ``HOST_MARGIN_BYTES`` more available, and fails the run if it does not
+    (a host out of memory would lose the machine).  The copies go through two
+    pinned buffers of ``STAGE_BYTES`` in turns (the card fills one while
+    the host empties the other into the tensor's pageable memory): on the
+    H100's host a plain ``.cpu()`` into fresh pages ran at 1.5–1.8 GB/s,
+    the staged copy at 4.7–4.8 GB/s (``scripts/host_copy_rates.py``)."""
+    import copy
+    import gc
+    import itertools
+
+    need = sum(t.nbytes for t in itertools.chain(model.parameters(), model.buffers()))
+    t0 = time.perf_counter()
+    while host_mem_available() < need + HOST_MARGIN_BYTES:
+        if time.perf_counter() - t0 > HOST_WAIT_S:
+            fail(f"cpu_copy: the host has {host_mem_available()} bytes available, the "
+                 f"copy needs {need} and leaves {HOST_MARGIN_BYTES} free")
+        gc.collect()
+        time.sleep(1.0)
+    stages = [torch.empty(STAGE_BYTES, dtype=torch.uint8, pin_memory=True)
+              for _ in range(2)]
+    stream = torch.cuda.Stream()
+    done = [torch.cuda.Event() for _ in stages]
+
+    def host(t: torch.Tensor) -> torch.Tensor:
+        src = t.detach().contiguous().view(-1).view(torch.uint8)
+        out = torch.empty(t.shape, dtype=t.dtype)
+        dst = out.view(-1).view(torch.uint8)
+        pending = [None, None]
+        torch.cuda.current_stream().synchronize()   # t is written
+        for i, lo in enumerate(range(0, src.numel(), STAGE_BYTES)):
+            j = i % 2
+            if pending[j] is not None:
+                done[j].synchronize()
+                a, b = pending[j]
+                dst[a:b].copy_(stages[j][:b - a])
+            hi = min(lo + STAGE_BYTES, src.numel())
+            with torch.cuda.stream(stream):
+                stages[j][:hi - lo].copy_(src[lo:hi], non_blocking=True)
+                done[j].record(stream)
+            pending[j] = (lo, hi)
+        for j in (0, 1):
+            if pending[j] is not None:
+                done[j].synchronize()
+                a, b = pending[j]
+                dst[a:b].copy_(stages[j][:b - a])
+        return out
+
+    memo = {}
+    for t in itertools.chain(model.parameters(), model.buffers()):
+        h = host(t)
+        memo[id(t)] = (torch.nn.Parameter(h, requires_grad=t.requires_grad)
+                       if isinstance(t, torch.nn.Parameter) else h)
+    return copy.deepcopy(model, memo)
+
+
+# the routed families' model checks: (arch, its config's fields replaced,
+# prompt bytes).  jamba's cut is its published layers 2-3; its prompts span
+# three SSD chunks of 256, as the SSM check's
+ROUTED_CHECKS = {
+    "moonshot-v1-16b-a3b": (dict(n_layers=MODEL_LAYERS), (255, 97)),
+    QWEN3_MOE: (dict(n_layers=MODEL_LAYERS), (255, 97)),
+    HYBRID: (HYBRID_CHECK_CUT, SSM_MODEL_LENGTHS),
+}
+
+
+def moe_model_check(work: Path, seed: int, card: str, arch: str) -> None:
+    """``arch`` at full width with its ``ROUTED_CHECKS`` cut, in float32 with
+    TF32 off, weights drawn on the card and copied to the CPU
+    (:func:`cpu_copy`; the host's ``MemAvailable`` printed first): the
+    router's top-k experts first (a flip passes only at a probability
+    near-tie, and then the logits and caches are not comparable), then
+    prefill logits and every layer's cache (K/V; on the hybrid's Mamba
+    layers the SSM state and the convolution tail) within
+    ``MODEL_ATOL``/``MODEL_RTOL``, dropped assignments equal on both
+    sides, and each model kernel's launches (:func:`prefill_launches`)."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import monitor
+    from repro_torch.models.registry import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    fields, lengths = ROUTED_CHECKS[arch]
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **fields)
+    api = build_model(cfg)
+    avail = host_mem_available()
+    card_model = api.init(torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in card_model.parameters())
+    print(f"moe check[{arch}]: host MemAvailable {avail} bytes before the copy; "
+          f"{n_params} parameters = {4 * n_params} bytes a side; drawn on the card "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    cpu_model = cpu_copy(card_model)
+    t2 = time.perf_counter()
+    toks, lens = prompt_batch(corpus_prompts(work, lengths))
     with monitor(cpu_model) as r_cpu:
-        want, _ = lm_prefill(cpu_model, cfg, toks, lengths=lens)
-    flash_attention_cuda.launches = 0
+        want, want_cache = api.prefill(cpu_model, {"tokens": toks, "lengths": lens})
+    split = f"copy to the host {t2 - t1:.1f} s, CPU prefill {time.perf_counter() - t2:.1f} s"
+    wrappers = model_wrappers()
+    reset_launches(wrappers.values())
     with monitor(card_model) as r_card:
-        got, _ = lm_prefill(card_model, cfg, toks.cuda(), lengths=lens.cuda())
+        got, cache = api.prefill(card_model, {"tokens": toks.cuda(),
+                                              "lengths": lens.cuda()})
         torch.cuda.synchronize()
-    launches = flash_attention_cuda.launches
-    if not len(r_cpu) == len(r_card) == MODEL_LAYERS:
-        fail(f"moe check: routing of {len(r_cpu)} layers on the CPU, {len(r_card)} "
-             f"on the card, want {MODEL_LAYERS}")
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    want_launches = prefill_launches(cfg)
+    n_moe = len(r_cpu)
+    if not n_moe == len(r_card) > 0:
+        fail(f"moe check[{arch}]: routing of {len(r_cpu)} MoE layers on the CPU, "
+             f"{len(r_card)} on the card")
     flips, gaps = 0, []
     for c_cpu, c_card in zip(r_cpu, r_card):
         a = c_cpu.top_i.sort(dim=-1).values
@@ -2396,32 +2696,50 @@ def moe_model_check(work: Path, seed: int, card: str) -> None:
     drop_cpu = int(sum(c.dropped for c in r_cpu))
     drop_card = int(sum(c.dropped for c in r_card))
     if got.shape != (2, cfg.vocab_size) or not torch.isfinite(got).all():
-        fail(f"moe check: logits {tuple(got.shape)} not finite or misshaped")
+        fail(f"moe check[{arch}]: logits {tuple(got.shape)} not finite or misshaped")
     err = float((got - want).abs().max())
+    pairs = [(n, c[n].cpu(), w[n]) for c, w in zip(cache, want_cache) for n in sorted(w)]
+    cache_err = {n: max(float((a - b).abs().max()) for m, a, b in pairs if m == n)
+                 for n in sorted({n for n, _, _ in pairs})}
+    cache_ok = all(a.shape == b.shape and torch.allclose(a, b, atol=MODEL_ATOL,
+                                                         rtol=MODEL_RTOL)
+                   for _, a, b in pairs)
+    kinds = [(f"{type(l.mixer).__name__}+{type(l.ffn).__name__}" if hasattr(l, "mixer")
+              else f"Attention+{'MoE' if l.moe is not None else 'SwiGLU'}")
+             for l in card_model.layers]
     routing = (f"router top-{cfg.experts_per_token} identical on all "
-               f"{toks.numel()} tokens x {MODEL_LAYERS} layers" if not flips else
+               f"{toks.numel()} tokens x {n_moe} MoE layers" if not flips else
                f"{flips} assignments flipped, smallest top-k probability gap among "
                f"them {min(gaps):.3g}")
-    print(f"model check: moonshot-v1-16b-a3b full width ({cfg.n_experts} experts of "
-          f"d_ff {cfg.d_ff}, top-{cfg.experts_per_token}, vocab {cfg.vocab_size}), "
-          f"{MODEL_LAYERS} layers, float32, allow_tf32=False; prompts "
-          f"{lens.tolist()} tokens; {routing}; dropped assignments CPU {drop_cpu}, "
-          f"card {drop_card}; card vs CPU prefill logits max_abs_err={err:.6g} (atol "
-          f"{MODEL_ATOL}, rtol {MODEL_RTOL}); flash_attention launches {launches}; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if launches != MODEL_LAYERS:
-        fail(f"moe check: {launches} flash_attention launches, want {MODEL_LAYERS}")
+    print(f"model check: {arch} full width ({cfg.n_experts} experts of d_ff "
+          f"{cfg.d_ff}, top-{cfg.experts_per_token}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, vocab "
+          f"{cfg.vocab_size}), {cfg.n_layers} layers {kinds}, float32, "
+          f"allow_tf32=False; prompts {lens.tolist()} tokens; {routing}; dropped "
+          f"assignments CPU {drop_cpu}, card {drop_card}; card vs CPU prefill logits "
+          f"max_abs_err={err:.6g}, caches max_abs_err {json.dumps(cache_err)} (atol "
+          f"{MODEL_ATOL}, rtol {MODEL_RTOL}); launches {json.dumps(launches)}; "
+          f"{time.perf_counter() - t0:.1f} s ({split}); card: {card}", flush=True)
+    for kernel, n in launches.items():
+        if n != want_launches.get(kernel, 0):
+            fail(f"moe check[{arch}]: {n} {kernel} launches, want "
+                 f"{want_launches.get(kernel, 0)}")
     if flips:
         if max(gaps) > MOE_NEAR_TIE:
-            fail(f"moe check: routing differs at a probability gap of {max(gaps):.3g}")
-        print("moe check: routing differs only at near-ties; the logits are not "
-              "comparable after a flip", flush=True)
+            fail(f"moe check[{arch}]: routing differs at a probability gap of "
+                 f"{max(gaps):.3g}")
+        print(f"moe check[{arch}]: routing differs only at near-ties; the logits are "
+              "not comparable after a flip", flush=True)
     else:
         if drop_cpu != drop_card:
-            fail(f"moe check: dropped {drop_card} on the card, {drop_cpu} on the CPU")
+            fail(f"moe check[{arch}]: dropped {drop_card} on the card, {drop_cpu} on "
+                 "the CPU")
         if not torch.allclose(got, want, atol=MODEL_ATOL, rtol=MODEL_RTOL):
-            fail(f"moe check: card logits differ from the CPU's (max {err})")
-    del card_model, cpu_model
+            fail(f"moe check[{arch}]: card logits differ from the CPU's (max {err})")
+        if not cache_ok:
+            fail(f"moe check[{arch}]: card caches differ from the CPU's {cache_err}")
+    del card_model, cpu_model, cache, want_cache, pairs, r_cpu, r_card
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2437,9 +2755,9 @@ def moe_serving_phase(work: Path, seed: int, card: str) -> int:
     from repro_torch.serve.scheduler import ContinuousEngine
 
     t0 = time.perf_counter()
-    launches, engine, _ = lm_serving_phase(work, seed, "moonshot-v1-16b-a3b",
-                                           flash_attention_cuda, card,
+    launches, engine, _ = lm_serving_phase(work, seed, "moonshot-v1-16b-a3b", card,
                                            max_len=CONT_MAX_LEN)
+    launches = launches["flash_attention"]
     cfg, model = engine.cfg, engine.model
     del engine
     prompts = corpus_prompts(work, SERVE_LENGTHS)
@@ -2499,8 +2817,11 @@ TRAIN_PARITY = ("yi-6b", "moonshot-v1-16b-a3b", "mamba2-1.3b")
 TRAIN_PARITY_LENGTHS = (255, 97)  # prompt bytes of the parity batch
 CRASH_ARCH = "jamba-1.5-large-398b"  # smoke: both kernels and the MoE on one path
 TRAIN_SEQ, TRAIN_BATCH = 2048, 4
-# the full-size runs: (arch, layers or None for the full depth, steps)
-FULL_TRAIN = (("mamba2-1.3b", None, 5), ("yi-6b", 4, 3))
+# the full-size runs: (arch, layers or None for the full depth, steps,
+# whether the final checkpoint is written).  mamba2's checkpoint (and the
+# crash/resume phase) keeps the save and restore path on the card; yi-6b's
+# 14.6 GB one took ~52 s at ~0.28 GB/s and shows nothing more
+FULL_TRAIN = (("mamba2-1.3b", None, 5, True), ("yi-6b", 4, 3, False))
 # gemma3-12b's windowed training step: one published block (five window
 # layers, one global), 2 steps, no checkpoint (its ~40 GB of state would
 # take minutes to write)
@@ -2715,7 +3036,6 @@ def train_parity_phase(work: Path, seed: int, wrappers) -> None:
     are not comparable.  Per layer, ``flash_attention`` must launch twice
     (forward, recompute) and ``ssd_scan`` three times (forward, recompute,
     backward)."""
-    import copy
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2733,7 +3053,7 @@ def train_parity_phase(work: Path, seed: int, wrappers) -> None:
         g = torch.Generator(device="cuda")
         g.manual_seed(seed)
         card_model = make_train_state(api, g, device="cuda")["model"]
-        cpu_model = copy.deepcopy(card_model).to("cpu")
+        cpu_model = cpu_copy(card_model)
         moe = any(isinstance(m, MoE) for m in card_model.modules())
         batch = {"tokens": toks, "loss_mask": mask}
         with monitor(cpu_model) as r_cpu:
@@ -3319,6 +3639,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    started = time.perf_counter()
     secs = build.build()
     print(f"build: {len(build.SOURCES)} sources in {secs:.1f} s", flush=True)
     for name in build.SOURCES:
@@ -3333,10 +3654,11 @@ def main() -> None:
     tani = tanimoto_phase(args.seed)
     attn = attention_case(FA_YI, args.seed)
     for case in (FA_GEMMA, FA_GEMMA_SERVED, FA_GEMMA_SERVED_GLOBAL, FA_VLM_SERVED,
-                 FA_MOONSHOT, *FA_SUFFIX, *FA_WHISPER):
+                 FA_QWEN3_SERVED, FA_HYBRID_SERVED, FA_MOONSHOT, *FA_SUFFIX, *FA_WHISPER):
         attention_case(case, args.seed)
     ssd = ssd_scan_case(SSD_PREFILL, args.seed)
     ssd_scan_case(SSD_LONG, args.seed)
+    ssd_scan_case(SSD_HYBRID, args.seed)
     smp = sample_case(args.seed)
     ssd_scan_backward_case(args.seed)
     fa_bwd = attention_backward_case(FA_TRAIN, args.seed)
@@ -3348,6 +3670,7 @@ def main() -> None:
     wrappers = {"sorted_probe": sorted_probe_cuda, "hash_mix": hash_mix_cuda,
                 "tanimoto": tanimoto_topk_cuda}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        t0 = time.perf_counter()
         reset_launches(wrappers.values())
         summary = run_funnel(FUNNEL_RECORDS, seed=args.seed, device="cuda",
                              log=lambda s: print(f"funnel: {s}", flush=True),
@@ -3361,15 +3684,16 @@ def main() -> None:
         print(f"funnel launches: {json.dumps(funnel_launches)}", flush=True)
         hashed_phase_check(Path(work), summary, args.seed)
         digest_launches = funnel_paper_phases(summary, Path(work), args.seed, card)
+        print(f"funnel phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
         launches = serving_phase(serve_index, Path(work), wrappers, card)
         t0 = time.perf_counter()
         checks = model_cases()
-        lm_wrappers = {"flash_attention": flash_attention_cuda,
-                       "ssd_scan": ssd_scan_cuda}
+        lm_wrappers = model_wrappers()
         model_phase(Path(work), args.seed, checks["dense"], lm_wrappers)
-        fa_static, engine, static_runs = lm_serving_phase(
-            Path(work), args.seed, "yi-6b", flash_attention_cuda, card)
+        yi_launches, engine, static_runs = lm_serving_phase(
+            Path(work), args.seed, "yi-6b", card)
+        fa_static = yi_launches["flash_attention"]
         chunked_decode_reading(engine, corpus_prompts(Path(work), SERVE_LENGTHS), card)
         fa_cont = continuous_serving_phase(Path(work), engine,
                                            static_runs[0]["token_ids"], card)
@@ -3388,34 +3712,51 @@ def main() -> None:
         print(f"LM phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         model_phase(Path(work), args.seed, checks["recurrent"], lm_wrappers)
-        launches["ssd_scan"], engine, _ = lm_serving_phase(
-            Path(work), args.seed, "mamba2-1.3b", ssd_scan_cuda, card)
+        ssm_launches, engine, _ = lm_serving_phase(
+            Path(work), args.seed, "mamba2-1.3b", card)
+        launches["ssd_scan"] = ssm_launches["ssd_scan"]
         del engine
         torch.cuda.empty_cache()
-        hybrid_alternation(Path(work), args.seed, card)
         print(f"SSM phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         encdec_model_check(Path(work), args.seed)
-        fa_whisper, engine, _ = lm_serving_phase(
-            Path(work), args.seed, WHISPER, flash_attention_cuda, card,
+        whisper_launches, engine, _ = lm_serving_phase(
+            Path(work), args.seed, WHISPER, card,
             max_len=WHISPER_TEXT_CTX, lengths=WHISPER_LENGTHS)
+        fa_whisper = whisper_launches["flash_attention"]
         del engine
         torch.cuda.empty_cache()
         print(f"encoder-decoder phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         model_phase(Path(work), args.seed, checks["families"], lm_wrappers)
-        fa_gemma, engine, _ = lm_serving_phase(Path(work), args.seed, GEMMA,
-                                               flash_attention_cuda, card)
+        gemma_launches, engine, _ = lm_serving_phase(Path(work), args.seed, GEMMA, card)
+        fa_gemma = gemma_launches["flash_attention"]
         del engine
         torch.cuda.empty_cache()
-        fa_vlm, engine, _ = lm_serving_phase(Path(work), args.seed, VLM,
-                                             flash_attention_cuda, card,
-                                             layers=VLM_SERVE_LAYERS)
+        vlm_launches, engine, _ = lm_serving_phase(
+            Path(work), args.seed, VLM, card, cut=dict(n_layers=VLM_SERVE_LAYERS))
+        fa_vlm = vlm_launches["flash_attention"]
+        fa_vlm_cont = vlm_continuous_phase(Path(work), engine, card)
         del engine
         torch.cuda.empty_cache()
+        vlm_continuous_parity(Path(work), args.seed, card)
         print(f"gemma3 and internvl2 phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        moe_model_check(Path(work), args.seed, card)
+        moe_model_check(Path(work), args.seed, card, HYBRID)
+        hybrid_launches, engine, _ = lm_serving_phase(Path(work), args.seed, HYBRID, card,
+                                                      cut=HYBRID_SERVE_CUT)
+        del engine
+        torch.cuda.empty_cache()
+        print(f"hybrid phases: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        moe_model_check(Path(work), args.seed, card, QWEN3_MOE)
+        qwen3_launches, engine, _ = lm_serving_phase(
+            Path(work), args.seed, QWEN3_MOE, card,
+            cut=dict(n_layers=QWEN3_MOE_SERVE_LAYERS))
+        fa_qwen3 = qwen3_launches["flash_attention"]
+        del engine
+        torch.cuda.empty_cache()
+        moe_model_check(Path(work), args.seed, card, "moonshot-v1-16b-a3b")
         fa_moe = moe_serving_phase(Path(work), args.seed, card)
         print(f"MoE phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
@@ -3426,8 +3767,8 @@ def main() -> None:
         train_parity_phase(Path(work), args.seed, lm_wrappers)
         crash_resume_phase(Path(work), args.seed)
         trained = {arch: full_training_phase(Path(work), arch, layers, steps, card,
-                                             train_wrappers)
-                   for arch, layers, steps in FULL_TRAIN}
+                                             train_wrappers, ckpt=ckpt)
+                   for arch, layers, steps, ckpt in FULL_TRAIN}
         trained[GEMMA] = full_training_phase(
             Path(work), GEMMA, GEMMA_TRAIN_LAYERS, GEMMA_TRAIN_STEPS, card,
             train_wrappers, ckpt=False)
@@ -3448,19 +3789,23 @@ def main() -> None:
                              "flash_attention_bwd.window_launches")}
     launches["hash_mix"] += digest_launches + train_total["hash_mix"]
     launches["flash_attention"] = (fa_static + fa_cont + fa_sampled + fa_moe + fa_whisper
-                                   + fa_gemma + fa_vlm + train_total["flash_attention"]
-                                   + fa_mesh + fa_ep)
-    launches["ssd_scan"] += train_total["ssd_scan"] + ssd_mesh
+                                   + fa_gemma + fa_vlm + fa_vlm_cont
+                                   + hybrid_launches["flash_attention"] + fa_qwen3
+                                   + train_total["flash_attention"] + fa_mesh + fa_ep)
+    launches["ssd_scan"] += (hybrid_launches["ssd_scan"] + train_total["ssd_scan"]
+                             + ssd_mesh)
     print(f"launches by path: hash_mix serve_index {hm_serving} + digest_ids "
           f"{digest_launches} + training's batch verify {train_total['hash_mix']}; "
           f"flash_attention yi-6b static {fa_static} + yi-6b continuous {fa_cont} + "
           f"yi-6b sampled {fa_sampled} + "
           f"moonshot static and continuous {fa_moe} + whisper-small static "
           f"{fa_whisper} + gemma3-12b static {fa_gemma} + internvl2-76b static "
-          f"{fa_vlm} + training "
+          f"{fa_vlm} + internvl2-76b continuous {fa_vlm_cont} + jamba static "
+          f"{hybrid_launches['flash_attention']} + qwen3-moe static {fa_qwen3} + training "
           f"{train_total['flash_attention']} (gemma3-12b's "
           f"{gemma_train['flash_attention']}) + the mesh phase's yi-6b serving {fa_mesh} "
-          f"and moonshot expert-parallel prefill {fa_ep}; ssd_scan mamba2 serving + "
+          f"and moonshot expert-parallel prefill {fa_ep}; ssd_scan mamba2 serving "
+          f"{ssm_launches['ssd_scan']} + jamba serving {hybrid_launches['ssd_scan']} + "
           f"training {train_total['ssd_scan']} + the mesh trainer {ssd_mesh}; "
           f"sorted_probe in training "
           f"{train_total['sorted_probe']} (the launcher's index is in memory); "
@@ -3477,6 +3822,8 @@ def main() -> None:
           f"{yi['prof'].get('bwd_kernels_share', 'not measured')}; from the kernel "
           f"phase's kernel_ms x 4 layers / step_ms: {est:.4f}", flush=True)
 
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s from the build to here",
+          flush=True)
     kernels = [
         dict(name="sorted_probe", route="cuda",
              source="src/repro_torch/csrc/sorted_probe.cu",
