@@ -7,12 +7,19 @@
 2. Kernels against their plain PyTorch versions, on the card, at the
    paper's scale: ``sorted_probe`` over a sorted 176,929,690-entry digest
    plane (PubChem's count) with 477,123 queries (ChEMBL ∩ eMolecules), of
-   which 435,413 (the extracted count) are drawn from the plane, plus a
-   24-bit table with duplicate runs, each timed warm and cold (L2 flushed
-   before each launch) with ``torch.searchsorted`` beside it the same two
-   ways, and a serving request's shape (32 keys in a 100,000-entry plane),
-   timed on the device with the calls queued behind a sleep (so the host's
-   enqueue time is hidden), cold, and on the host per call; ``hash_mix`` over
+   which 435,413 (the extracted count) are drawn from the plane, over one
+   of its 16 shards (11,058,106 entries, 29,820 queries), plus a 24-bit
+   table with duplicate runs, each made a ``ProbeTable`` (its fences built
+   once, counted) and searched on the route it takes (printed with the
+   launches on it, the fence bytes and their share of the table), timed
+   warm and cold (L2 flushed before each launch) with
+   ``torch.searchsorted`` beside it the same two ways, and a serving
+   request's shape (32 keys in a 100,000-entry plane), timed on the device
+   with the calls queued behind a sleep (so the host's enqueue time is
+   hidden), cold, and on the host per call; the store's served probe
+   (``_probe_starts_device``) on every table, held to the plain version
+   and timed on the host; beside the sector bound, the bytes of the
+   fenced design's own node reads; ``hash_mix`` over
    the 1,048,576 x 128 verify batch that ``compare_ids_batch`` forms for
    435,413 pairs, the same rows at 32 and 64 lanes, the funnel's largest
    verify batch (4,096 x 128) and a slice 4 bytes off 16-byte alignment,
@@ -53,10 +60,8 @@
    writing the rows' log-sum-exp: the output must be bit-identical and the
    lse within 1e-5 (1 + |lse|) of ``attention_lse_ref`` (+inf exactly
    where a row sees no key).
-   After the build, ptxas must report no spills in ``flash_attention.cu``,
-   ``flash_attention_bwd.cu``, ``sorted_probe.cu``, ``hash_mix.cu``,
-   ``sample.cu`` and ``ssd_scan.cu`` (``tanimoto.cu`` spills a few bytes in
-   two instances of its filter kernel),
+   After the build, ptxas must report no spills in any of the seven
+   sources,
    and ``cuobjdump -sass`` must show each redesigned kernel's instruction
    (``DESIGN_OPCODES``): ``HGMMA`` and ``UTMALDG`` in the tensor-core
    attention kernel and in both product kernels of its backward,
@@ -103,7 +108,9 @@
    per-query similar_batch(probe="host")`` gate (the card's kernel against
    the host's plain version).  Launch counts are set to 0 before the phase
    and read after it: ``sorted_probe``, ``hash_mix`` and ``tanimoto`` must
-   each have launched there.
+   each have launched there (``sorted_probe``'s per route printed), and
+   the fence builds over the phase must be at most the device tables its
+   stores can upload.
 5. A model check at full width: yi-6b cut to 2 layers, in float32 with
    TF32 off, weights made once and loaded into a card model and a CPU
    model; the prefill logits of two ragged prompts (at most 256 bytes, from
@@ -369,6 +376,9 @@ PUBCHEM = 176_929_690      # table entries (the paper's PubChem count)
 QUERIES = 477_123          # ChEMBL ∩ eMolecules
 FROM_PLANE = 435_413       # of which present in PubChem (the extracted count)
 DUP_TABLE = 1 << 22        # the duplicate-run case: 24-bit digests
+SHARDS = 16                # PubChem's plane as the funnel's save_sharded cuts it:
+SHARD_ROWS = -(-PUBCHEM // SHARDS)  # 11,058,106 rows a shard
+SHARD_QUERIES = QUERIES // SHARDS   # 29,820 keys a shard
 VERIFY_ROWS = 1 << 20      # 2 x 435,413 rows bucketed to a power of two
 VERIFY_LANES = 128         # 112 lanes (431-byte ids) bucketed
 FUNNEL_VERIFY_ROWS = 4096  # the funnel's largest verify batch at 100,000 records
@@ -628,8 +638,21 @@ def keys_to_pairs(keys: torch.Tensor) -> torch.Tensor:
     return to_u32(torch.stack([(u >> 32) & M32, u & M32], dim=1)).contiguous()
 
 
+def answer_sectors(keys: torch.Tensor, qk: torch.Tensor) -> int:
+    """Distinct 32-byte table sectors that hold each query's answer: the
+    keys at ``pos - 1`` and ``pos`` (``pos`` the lower bound), the two that
+    any search must see to know that ``pos`` is the answer.  The fewest
+    table bytes a lower-bound search of ``qk`` has to move, the bound's
+    bytes for every route."""
+    m = keys.numel()
+    pos = torch.searchsorted(keys, qk)
+    idx = torch.cat([pos[pos > 0] - 1, pos[pos < m]])
+    return int(torch.unique(idx // 4).numel())
+
+
 def search_sectors(keys: torch.Tensor, qk: torch.Tensor) -> int:
-    """Distinct 32-byte table sectors a lower-bound search of ``qk`` reads.
+    """Distinct 32-byte table sectors the direct route's lower-bound search
+    of ``qk`` reads (the bound's bytes before the fenced route).
 
     Replays the kernel's branch-free search (the step widths do not depend
     on the data, only the bases do) and counts the sectors it touches.
@@ -648,50 +671,120 @@ def search_sectors(keys: torch.Tensor, qk: torch.Tensor) -> int:
     return int(torch.unique(torch.cat(touched) // 4).numel())
 
 
-def probe_case(name, keys, qk, reps, note, flush, serving=False):
-    """Hold sorted_probe's kernel to its plain version on one table; time it
-    and ``torch.searchsorted`` warm (or, for a serving request, queued
-    behind a sleep, and on the host) and cold (L2 flushed before each
-    launch)."""
-    from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
+def fenced_nodes(pt, qk: torch.Tensor):
+    """Distinct fence nodes and table lines (``NODE_KEYS`` keys each) the
+    fenced search of ``qk`` (sign-flipped int64 keys) reads: ``(at every
+    level and the leaves, at level 1 and the leaves)``, the latter the two
+    arrays of a PubChem-sized table that L2 cannot hold.  A replay of the
+    kernel's walk."""
+    from repro_torch.kernels.sorted_probe.kernel import NODE_KEYS, fence_levels
+    from repro_torch.kernels.sorted_probe.ref import pairs_to_key
+
+    b = NODE_KEYS
+    fk = pairs_to_key(pt.fences)  # pads (all ones) flip to the largest int64
+    levels, _ = fence_levels(pt.m)
+    node = torch.zeros_like(qk)
+    ar = torch.arange(b, device=qk.device)
+    nodes = bottom = 0
+    for depth, (off, _n) in reversed(list(enumerate(levels, start=1))):
+        seen = int(torch.unique(node).numel())
+        nodes += seen
+        bottom += seen if depth == 1 else 0
+        cnt = (fk[off + node[:, None] * b + ar] < qk[:, None]).sum(1)
+        node = node * (b + 1) + cnt
+    leaves = int(torch.unique(node).numel())
+    return nodes + leaves, bottom + leaves
+
+
+def probe_case(name, keys, qk, reps, note, flush, queued=False, host_calls=20):
+    """Hold sorted_probe's kernel, on the route its ``ProbeTable`` takes, to
+    its plain version on one table; time it and ``torch.searchsorted`` warm
+    (or, for a call shorter than its enqueue, queued behind a sleep) and
+    cold (L2 flushed before each launch), the wrapper and the store's
+    served probe (``_probe_starts_device``) on the host, and the fences'
+    build (a fenced-route table's only).  The bound counts the sectors
+    that hold the answers (``answer_sectors``); the direct search's
+    sectors, and on the fenced route the fenced design's node and line
+    bytes, are printed beside it."""
+    from repro_torch.core.store import _probe_starts_device
+    from repro_torch.kernels.sorted_probe.kernel import (
+        NODE_KEYS, ProbeTable, sorted_probe_cuda)
     from repro_torch.kernels.sorted_probe.ref import sorted_probe_ref
 
     table = keys_to_pairs(keys)
     queries = keys_to_pairs(qk)
     q, m = qk.numel(), keys.numel()
-    before = sorted_probe_cuda.launches
-    f_k, p_k = sorted_probe_cuda(queries, table)
+    builds = sorted_probe_cuda.fence_builds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt = ProbeTable(table)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    path = pt.route
+    if sorted_probe_cuda.fence_builds != builds + (path == "fenced"):
+        fail(f"sorted_probe {name}: the {path} table did not build its fences "
+             f"{'once' if path == 'fenced' else 'not at all'}")
+    routes = {r: getattr(sorted_probe_cuda, f"{r}_launches") for r in ("direct", "fenced")}
+    before = (sorted_probe_cuda.launches, getattr(sorted_probe_cuda, f"{path}_launches"))
+    f_k, p_k = sorted_probe_cuda(queries, pt)
     f_r, p_r = sorted_probe_ref(queries, table)
     torch.cuda.synchronize()
-    if sorted_probe_cuda.launches != before + 1:
-        fail(f"sorted_probe {name}: the call did not count one launch")
+    after = (sorted_probe_cuda.launches, getattr(sorted_probe_cuda, f"{path}_launches"))
+    if after != (before[0] + 1, before[1] + 1):
+        fail(f"sorted_probe {name}: the call did not count one launch on the {path} route")
     if not (torch.equal(f_k, f_r) and torch.equal(p_k, p_r)):
         bad = int((f_k != f_r).sum() + (p_k != p_r).sum())
         fail(f"sorted_probe {name}: kernel disagrees with plain version ({bad} outputs)")
     err = int((p_k.to(torch.int64) - p_r.to(torch.int64)).abs().max())
     err = max(err, int((f_k != f_r).sum()))
-    kernel = lambda: sorted_probe_cuda(queries, table)  # noqa: E731
+    digests = (qk ^ SIGN).cpu().numpy().view(np.uint64)
+    found, starts = _probe_starts_device(pt, digests)
+    if not (np.array_equal(found, f_r.cpu().numpy())
+            and np.array_equal(starts, p_r.cpu().numpy())):
+        fail(f"sorted_probe {name}: the store's served probe disagrees with the plain version")
+    kernel = lambda: sorted_probe_cuda(queries, pt)  # noqa: E731
     library = lambda: torch.searchsorted(keys, qk)  # noqa: E731
-    warm = queued_ms if serving else cuda_ms
+    warm = queued_ms if queued else cuda_ms
     ms = warm(kernel, reps)
     cold = cold_ms(kernel, 20, flush)
     plain = cuda_ms(lambda: sorted_probe_ref(queries, table), 3, warmup=1)
     lib_ms = warm(library, reps)
     lib_cold = cold_ms(library, 20, flush)
-    host = (f" host_us={host_us(kernel, HOST_CALLS):.3f} "
-            f"library_host_us={host_us(library, HOST_CALLS):.3f}") if serving else ""
-    sectors = search_sectors(keys, qk)
-    nbytes = sectors * 32 + q * 8 + q * (1 + 4)
-    steps = max(1, (m - 1).bit_length()) + 1
-    b, by = bound_ms(nbytes, q * steps * 3)
+    served = host_us(lambda: _probe_starts_device(pt, digests), host_calls)
+    host = (f" host_us={host_us(kernel, host_calls):.3f} "
+            f"library_host_us={host_us(library, host_calls):.3f} "
+            f"probe_starts_device_host_us={served:.3f}")
+    io = q * (8 + 1 + 4)  # queries in, positions and flags out
+    sectors = answer_sectors(keys, qk)
+    nbytes = sectors * 32 + io
+    # a comparison search needs ceil(log2(M + 1)) compares a query, each
+    # 3 int32 operations on a 64-bit key
+    b, by = bound_ms(nbytes, q * m.bit_length() * 3)
+    direct_sectors = search_sectors(keys, qk)
+    direct_bound, _ = bound_ms(direct_sectors * 32 + io,
+                               q * (max(1, (m - 1).bit_length()) + 1) * 3)
+    if path == "fenced":
+        all_nodes, bottom_nodes = fenced_nodes(pt, qk)
+        fenced = (f"fenced_design_bytes={all_nodes * NODE_KEYS * 8 + io} (level 1 "
+                  f"and leaves: {bottom_nodes * NODE_KEYS * 8 + io})")
+    else:
+        fenced = "fenced_design_bytes=n/a (direct route)"
     hits = int(f_k.sum())
-    how = "queued" if serving else "warm"
-    print(f"sorted_probe[{name}]: M={m} Q={q} hits={hits} {note} "
-          f"bit-exact; kernel_ms={ms:.6f} ({how}) kernel_cold_ms={cold:.6f} "
-          f"plain_ms={plain:.6f} library_ms(searchsorted)={lib_ms:.6f} ({how}) "
-          f"library_cold_ms={lib_cold:.6f}{host} sectors={sectors} bytes={nbytes} "
-          f"bound_ms={b:.6f} ({by})", flush=True)
-    del table, queries
+    how = "queued" if queued else "warm"
+    print(f"sorted_probe[{name}]: M={m} Q={q} hits={hits} {note} route={path} "
+          f"launches direct={sorted_probe_cuda.direct_launches - routes['direct']} "
+          f"fenced={sorted_probe_cuda.fenced_launches - routes['fenced']} "
+          f"fence_bytes={pt.fence_bytes} fence_share={pt.fence_bytes / (8 * m):.4f} "
+          f"(nodes of {NODE_KEYS} keys, built in {build_ms:.3f} ms host clock) "
+          f"bit-exact; kernel_ms={ms:.6f} ({how}) "
+          f"kernel_cold_ms={cold:.6f} plain_ms={plain:.6f} "
+          f"library_ms(searchsorted)={lib_ms:.6f} ({how}) "
+          f"library_cold_ms={lib_cold:.6f}{host} answer_sectors={sectors} "
+          f"bytes={nbytes} bound_ms={b:.6f} ({by}) share_of_bound={b / ms:.3f} "
+          f"direct_search_sectors={direct_sectors} (bytes "
+          f"{direct_sectors * 32 + io}, bound_ms {direct_bound:.6f}) {fenced}",
+          flush=True)
+    del table, queries, pt
     return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=b,
                 bound_by=by, max_abs_err=err)
 
@@ -888,6 +981,15 @@ def kernel_phase(seed: int):
                       flush=flush)
     del keys, pick, qk
 
+    # -- sorted_probe on one of PubChem's 16 shards (save_sharded(n_shards=16))
+    keys = torch.sort(rand_keys(SHARD_ROWS)).values
+    pick = torch.randint(0, SHARD_ROWS, (FROM_PLANE // SHARDS,), generator=g, device=dev)
+    qk = torch.cat([keys[pick], rand_keys(SHARD_QUERIES - FROM_PLANE // SHARDS)])
+    qk = qk[torch.randperm(SHARD_QUERIES, generator=g, device=dev)]
+    probe_case("shard", keys, qk, reps=200, note="(88.5 MB: one of 16 shards)",
+               flush=flush, queued=True)
+    del keys, pick, qk
+
     # -- sorted_probe on 24-bit digests: duplicate runs -----------------------
     narrow = torch.randint(0, 1 << 24, (DUP_TABLE,), generator=g, device=dev)
     keys = torch.sort(narrow ^ SIGN).values  # hi = 0, lo = 24-bit digest
@@ -908,7 +1010,7 @@ def kernel_phase(seed: int):
                          generator=g, device=dev)
     qk = torch.cat([keys[pick], rand_keys(SERVE_KEYS // 4)])
     probe_case("serving", keys, qk, reps=200, note="(a request's keys)", flush=flush,
-               serving=True)
+               queued=True, host_calls=HOST_CALLS)
     del keys, pick, qk
 
     # -- hash_mix: the verify batch, the other widths, the funnel's batch,
@@ -1058,7 +1160,7 @@ def attention_case(case: FaCase, seed: int):
 # sources whose kernels must not spill, and what each redesigned kernel's
 # SASS must hold: (source, kernel, opcodes)
 NO_SPILL_SOURCES = ("flash_attention", "flash_attention_bwd", "sorted_probe", "hash_mix",
-                    "sample", "ssd_scan")
+                    "sample", "ssd_scan", "tanimoto")
 DESIGN_OPCODES = (
     ("flash_attention", "fa_forward_tc", ("HGMMA", "UTMALDG")),  # wgmma, TMA
     ("flash_attention_bwd", "fa_backward_dkdv", ("HGMMA", "UTMALDG")),
@@ -1951,19 +2053,42 @@ def hashed_phase_check(work: Path, summary: dict, seed: int) -> None:
 
 def serving_phase(serve_index, work: Path, wrappers, card: str):
     """The query service on the funnel's corpus and store, lookup mode then
-    similarity mode; returns each kernel's launches over the phase."""
+    similarity mode; returns each kernel's launches over the phase.  Each
+    device digest table builds its fences once: the phase's stores (the
+    service's replicas sharing one plane and their shard tables, the parity
+    and naive arms' stores with up to one table a shard, in each mode) bound
+    the builds, however many requests they serve; only tables on the fenced
+    route build fences."""
+    from repro_torch.core.store import IndexStore
+    from repro_torch.kernels.sorted_probe.kernel import FENCED_MIN_ROWS
+
+    probe = wrappers["sorted_probe"]
     common = ["--store", str(work / "store"), "--corpus", str(work / "corpus"),
               "--device", "cuda", "--replicas", "2", "--clients", "8",
               "--seconds", "2"]
     reset_launches(wrappers.values())
+    builds = probe.fence_builds
     t0 = time.perf_counter()
     look = serve_index.run(serve_index.build_parser().parse_args(common))
     sim = serve_index.run(serve_index.build_parser().parse_args(
         common + ["--similarity", "--similar-k", "8"]))
     counts = route_launches(wrappers)
     launches = {n: c["launches"] for n, c in counts.items()}
+    builds = probe.fence_builds - builds
+    # two modes: a plane, three stores' shards; those of the fenced route
+    rows = [int(sh["count"])
+            for sh in IndexStore.open(work / "store", device="cpu").manifest["shards"]]
+    tables = 2 * (1 + 3 * len(rows))
+    fenced = 2 * ((sum(rows) >= FENCED_MIN_ROWS)
+                  + 3 * sum(r >= FENCED_MIN_ROWS for r in rows))
     print(f"serving phase: {time.perf_counter() - t0:.1f} s; launches "
-          f"{json.dumps(counts)}", flush=True)
+          f"{json.dumps(counts)}; fence builds {builds} (at most {fenced} of "
+          f"{tables} device tables take the fenced route: a plane of {sum(rows)} "
+          f"rows, shards of {min(rows)} to {max(rows)}) for "
+          f"{launches['sorted_probe']} probe launches", flush=True)
+    if builds > fenced or (fenced and not builds):
+        fail(f"serving phase: {builds} fence builds, not one per fenced-route "
+             f"device table (at most {fenced})")
     for mode, out in (("lookup", look), ("similarity", sim)):
         if not out.get("parity"):
             fail(f"serve_index {mode} mode ran no parity gate")

@@ -53,6 +53,10 @@ EDITS = {
     # a loop of dependent 16-byte row loads in place of all 8 at once
     "loop-loads": ("const int w4 = !vec4 ? -1 : w == 32 ? 8 : 0;",
                    "const int w4 = !vec4 ? -1 : 0;"),
+    # every filter instance on the default-bounds kernel (the parent's:
+    # ptxas spills a register in <1, -1> and <2, 0>)
+    "no-wide": ("constexpr bool kWideFilter = (QPB == 1 && W4 == -1) || (QPB == 2 && W4 == 0);",
+                "constexpr bool kWideFilter = false;"),
 }
 # name -> plan fields replaced for the filter route
 PLANS = {"fresh-512": {"fresh": 512}}

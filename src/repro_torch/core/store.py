@@ -36,9 +36,12 @@ Shards load lazily and stay mmap'd, so resident memory is O(touched
 shards), and an untouched store costs only its manifest.  On the device
 side the same holds: a shard's digest column is uploaded to the store's
 device once, at its first device probe, as ``(M, 2)`` uint32 ``(hi, lo)``
-pairs.  ``ByteOffsetIndex`` remains the builder: :func:`save_sharded`
-skips rewriting shards whose content hash is unchanged, so incremental
-index updates republish only the shards they touched.
+pairs, kept as a :class:`~repro_torch.kernels.sorted_probe.kernel.ProbeTable`:
+a table that takes ``sorted_probe``'s fenced route builds its fences (a
+search tree over the table, an eighth of its bytes) there once with it.
+``ByteOffsetIndex`` remains the builder: :func:`save_sharded` skips
+rewriting shards whose content hash is unchanged, so incremental index
+updates republish only the shards they touched.
 
 Beyond exact-key lookup, each shard carries a **fingerprint plane**
 (``fps``/``fpcounts`` sidecars, see :mod:`repro_torch.core.fingerprint`):
@@ -65,6 +68,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..kernels.sorted_probe.kernel import ProbeTable, probe_served
 from ..kernels.sorted_probe.ops import sorted_probe
 from ..kernels.tanimoto.ops import tanimoto_topk, tanimoto_topk_host
 from .bloom import BloomFilter
@@ -468,10 +472,11 @@ class IndexStore:
         self._fp_shards: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         # Per-shard tables on self.device, the device counterpart of the
         # lazy mmap, each uploaded once at first device use: (M, 2) uint32
-        # digest tables and ((N, W) uint32, (N,) int32) fingerprint planes.
-        # Replicas of one store share them (share_device_tables); the
-        # owner alone counts them in resident_bytes.
-        self._probe_tables: Dict[int, torch.Tensor] = {}
+        # digest tables with their route and fences (ProbeTable) and
+        # ((N, W) uint32, (N,) int32) fingerprint planes.  Replicas of one
+        # store share them (share_device_tables); the owner alone counts
+        # them in resident_bytes.
+        self._probe_tables: Dict[int, ProbeTable] = {}
         self._fp_tables: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._table_lock = threading.Lock()
         self._owns_tables = True
@@ -502,8 +507,9 @@ class IndexStore:
         # default.
         self._digest_plane: Optional[Tuple[np.ndarray, ...]] = None
         # The serving plane's digests as one (M, 2) uint32 table on
-        # self.device: a device probe of a whole batch is then ONE launch.
-        self._probe_plane: Optional[torch.Tensor] = None
+        # self.device, with its route and fences: a device probe of a whole
+        # batch is then ONE launch.
+        self._probe_plane: Optional[ProbeTable] = None
         self._owns_probe_plane = False  # False when adopted from a replica
 
     @classmethod
@@ -544,16 +550,17 @@ class IndexStore:
                     self._shards[s] = shard
         return shard
 
-    def _probe_table(self, s: int) -> torch.Tensor:
+    def _probe_table(self, s: int) -> ProbeTable:
         """Shard ``s``'s digest column as an ``(M, 2)`` uint32 ``(hi, lo)``
-        table on the store's device (uploaded once, at first use)."""
+        table on the store's device, with its route and fences (uploaded
+        and built once, at first use)."""
         table = self._probe_tables.get(s)
         if table is None:
             digests = self._shard(s).digests  # takes _load_lock itself
             with self._table_lock:
                 table = self._probe_tables.get(s)
                 if table is None:
-                    table = _pairs_tensor(digests, self.device)
+                    table = ProbeTable(_pairs_tensor(digests, self.device))
                     self._probe_tables[s] = table
         return table
 
@@ -656,8 +663,9 @@ class IndexStore:
         concatenated across shards — 20 resident bytes/entry.  The fat
         keys column (the verify column) stays mmap-lazy; only verified
         hits fault its pages in.  The plane's digests are also pinned on
-        the store's device as one ``(M, 2)`` uint32 table, so a device
-        probe of a whole batch is one kernel launch.  Returns
+        the store's device as one ``(M, 2)`` uint32 table with its fences
+        (a ``ProbeTable``), so a device probe of a whole batch is one
+        kernel launch.  Returns
         ``(serving_plane, bloom_plane, probe_plane)`` so replicas of the
         same store can share the (read-only) planes instead of re-building.
         """
@@ -677,7 +685,7 @@ class IndexStore:
             d_all = concat([sh.digests for sh in shards], np.uint64)
             f_all = concat([sh.file_ids for sh in shards], np.int32)
             o_all = concat([sh.offsets for sh in shards], np.int64)
-            table = _pairs_tensor(d_all, self.device)
+            table = ProbeTable(_pairs_tensor(d_all, self.device))
             with self._load_lock:
                 self._digest_plane = (d_all, row_off, f_all, o_all)
                 self._probe_plane = table
@@ -687,8 +695,10 @@ class IndexStore:
     def adopt_planes(self, planes: Tuple) -> None:
         """Share another replica's (immutable) preloaded planes.
 
-        The device table is shared too when it already lies on this
-        store's device; only then is it counted by its owner alone.
+        The device table and its fences are shared too when they already
+        lie on this store's device; only then are they counted by their
+        owner alone.  Otherwise both are copied here (the fences are not
+        built again).
         """
         digest_plane, bloom_plane, table = planes
         owned = table.device != self.device
@@ -1133,20 +1143,21 @@ class IndexStore:
 
     def resident_bytes(self) -> int:
         """Bytes of shard columns, Bloom bitmaps and fingerprint planes
-        actually faulted in, plus the tables this store put on its device
-        (tables shared with or adopted from a replica are counted by the
-        replica that uploaded them).
+        actually faulted in, plus the tables this store put on its device,
+        digest tables with their fences (tables shared with or adopted from
+        a replica are counted by the replica that uploaded them).
 
         With mmap this is an upper bound (pages of touched shards); the
         point of comparison is against the dict index, which is *all*
         resident *always*.
         """
         dev: List[torch.Tensor] = []
+        probes: List[ProbeTable] = []
         if self._owns_tables:
-            dev += list(self._probe_tables.values())
+            probes += list(self._probe_tables.values())
             dev += [t for pair in self._fp_tables.values() for t in pair]
         if self._probe_plane is not None and self._owns_probe_plane:
-            dev.append(self._probe_plane)
+            probes.append(self._probe_plane)
         return (
             sum(sh.nbytes for sh in self._shards.values())
             + sum(bf.nbytes for bf in self._blooms.values())
@@ -1155,6 +1166,7 @@ class IndexStore:
                 for fp, fc in self._fp_shards.values()
             )
             + sum(t.numel() * t.element_size() for t in dev)
+            + sum(pt.nbytes for pt in probes)
         )
 
 
@@ -1169,16 +1181,50 @@ def _pairs_tensor(digests: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_u64_to_pairs(np.asarray(digests))).to(device)
 
 
+def _staging(n: int) -> Tuple[np.ndarray, torch.Tensor, np.ndarray, torch.Tensor]:
+    """This thread's pinned host buffers, holding at least ``n`` queries:
+    ``(words, pairs, results, out)``, ``words`` the first ``n`` queries'
+    ``(hi, lo)`` pairs as uint64 (numpy) over the ``(cap, 2)`` uint32
+    tensor ``pairs``, ``results`` the first ``5 n`` bytes (numpy) of the
+    uint8 tensor ``out``.  Grown to the next power of two; one set a
+    thread, because the service probes from many threads at once."""
+    st = _STAGING.__dict__
+    if st.get("cap", 0) < n:
+        cap = 1 << max(10, (n - 1).bit_length())
+        st["inp"] = torch.empty((cap, 2), dtype=torch.uint32, pin_memory=True)
+        st["out"] = torch.empty(5 * cap, dtype=torch.uint8, pin_memory=True)
+        st["inp_np"] = st["inp"].numpy().view(np.uint64).reshape(cap)
+        st["out_np"] = st["out"].numpy()
+        st["cap"] = cap
+    return st["inp_np"][:n], st["inp"], st["out_np"][:5 * n], st["out"]
+
+
+_STAGING = threading.local()
+
+
 def _probe_starts_device(
-    table: torch.Tensor, query_digests: np.ndarray
+    table: ProbeTable, query_digests: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Device digest probe: ``sorted_probe`` of the queries in ``table``.
 
-    ``table`` is a sorted ``(M, 2)`` uint32 digest table already on the
-    store's device.  Returns ``(found, starts)`` with ``starts`` the
-    leftmost equal-digest position — the kernel returns the global lower
-    bound, the same contract as the host ``searchsorted`` path, so the
-    equal-run verify loop is backend-agnostic.
+    ``table`` is a sorted digest table already on the store's device, with
+    its fences.  Returns ``(found, starts)`` with ``starts`` the leftmost
+    equal-digest position — the kernel returns the global lower bound, the
+    same contract as the host ``searchsorted`` path, so the equal-run
+    verify loop is backend-agnostic.  On a CUDA device the digests go in
+    with one copy from a pinned staging buffer and both results come out
+    with one copy into another, in one call (``probe_served``).
     """
-    found, pos = sorted_probe(_pairs_tensor(query_digests, table.device), table)
-    return found.cpu().numpy(), pos.cpu().numpy().astype(np.int64)
+    if table.device.type != "cuda":
+        found, pos = sorted_probe(
+            _pairs_tensor(query_digests, table.device), table)
+        return found.numpy(), pos.numpy().astype(np.int64)
+    n = len(query_digests)
+    inp_np, inp, out_np, out = _staging(n)
+    d = np.asarray(query_digests, dtype=np.uint64)
+    # a little-endian uint64 over (hi, lo) reads hi | lo << 32: the digest
+    # with its halves swapped
+    np.bitwise_or(d << np.uint64(32), d >> np.uint64(32), out=inp_np)
+    probe_served(table, inp, out, n)
+    return (out_np[4 * n:].view(np.bool_).copy(),
+            out_np[:4 * n].view(np.int32).astype(np.int64))

@@ -204,8 +204,8 @@ __device__ void team_fold(u64* a, int p, u64* f, int c, int tid, int nthr,
 // W4: the row's 16-byte words when known at compile time (W = 4 W4), 0 for
 // 16-byte loads of any W % 4 == 0, -1 for 4-byte loads
 template <int QPB, int W4>
-__global__ void __launch_bounds__(kThreads)
-tani_filter(const uint32_t* __restrict__ db, const int* __restrict__ dbc,
+__device__ __forceinline__ void
+filter_body(const uint32_t* __restrict__ db, const int* __restrict__ dbc,
             const uint32_t* __restrict__ q, const int* __restrict__ qc, int n,
             int w, int nq, int k, int p, int nf, int n_slices,
             int rows_per_slice, u64* __restrict__ tau_g,
@@ -364,6 +364,35 @@ tani_filter(const uint32_t* __restrict__ db, const int* __restrict__ dbc,
   }
 }
 
+#define TANI_FILTER_PARAMS                                                   \
+  const uint32_t *__restrict__ db, const int *__restrict__ dbc,             \
+      const uint32_t *__restrict__ q, const int *__restrict__ qc, int n,    \
+      int w, int nq, int k, int p, int nf, int n_slices, int rows_per_slice, \
+      u64 *__restrict__ tau_g, u64 *__restrict__ runs
+#define TANI_FILTER_FORWARD \
+  db, dbc, q, qc, n, w, nq, k, p, nf, n_slices, rows_per_slice, tau_g, runs
+
+template <int QPB, int W4>
+__global__ void __launch_bounds__(kThreads) tani_filter(TANI_FILTER_PARAMS) {
+  filter_body<QPB, W4>(TANI_FILTER_FORWARD);
+}
+
+// At its own choice of registers (48 a thread) ptxas spills one in
+// <1, -1> and <2, 0>; allowed the whole register file (one block an SM at
+// least) it spills nothing there.  Naming the blocks an SM holds for every
+// instance instead spilled in five, and one block for all slowed the tie
+// flood 1.8x (an H100 80GB HBM3 at 700 W), so only these two take it.
+template <int QPB, int W4>
+constexpr bool kWideFilter = (QPB == 1 && W4 == -1) || (QPB == 2 && W4 == 0);
+
+template <int QPB, int W4>
+__global__ void __launch_bounds__(kThreads, 1)
+tani_filter_wide(TANI_FILTER_PARAMS) {
+  filter_body<QPB, W4>(TANI_FILTER_FORWARD);
+}
+#undef TANI_FILTER_FORWARD
+#undef TANI_FILTER_PARAMS
+
 // A block per query: fold its n_slices sorted runs of k keys into one
 // sorted list, `slots` (a power of 2) lists of p keys at a time.
 __global__ void __launch_bounds__(kMergeThreads)
@@ -515,12 +544,16 @@ cudaError_t launch_filter(const uint32_t* db, const int* dbc, const uint32_t* q,
                           int nf, int n_slices, int rows_per_slice,
                           size_t smem, u64* tau_g, u64* runs,
                           cudaStream_t stream) {
+  auto* kernel = [] {
+    if constexpr (kWideFilter<QPB, W4>) return tani_filter_wide<QPB, W4>;
+    else return tani_filter<QPB, W4>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
-      tani_filter<QPB, W4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((nq + QPB - 1) / QPB, n_slices);
-  tani_filter<QPB, W4><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       db, dbc, q, qc, n, w, nq, k, p, nf, n_slices, rows_per_slice, tau_g,
       runs);
   return cudaGetLastError();

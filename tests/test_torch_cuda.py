@@ -113,33 +113,110 @@ def _probe_queries(rng, t, q):
     return np.ascontiguousarray(rows[rng.permutation(q)])
 
 
+# 8,388,609 rows (64 MB and a row) exceed the card's 50 MB L2
+PROBE_ROWS = [1, 7, 17, 2**13 - 1, 2**13 + 1, 100_003, 4_194_304, 8_388_609]
+
+
 @pytest.mark.parametrize("bits", [3, 20, 32])
-@pytest.mark.parametrize("m", [1, 7, 2**13 - 1, 2**13 + 1, 100_003, 4_194_304])
+@pytest.mark.parametrize("m", PROBE_ROWS)
 def test_sorted_probe_kernel_matches_plain(cuda, m, bits):
-    """The kernel against the plain version at Q = 1, 31, 3,500 and
-    300,000: duplicate runs, keys below the minimum and above the maximum;
-    one launch counted per call."""
+    """Both kernels against the plain version at Q = 1, 31, 3,500 and
+    300,000: duplicate runs, keys below the minimum and above the maximum.
+    The wrapper launches the route the table chose, once a call, and two
+    calls give the same bits; a plain tensor takes the direct route; a
+    fenced-route ``ProbeTable`` builds its fences once, a direct-route one
+    none (the fenced kernel is forced on it with fences built for it)."""
+    from repro_torch.kernels.sorted_probe.kernel import (
+        FENCED_MIN_ROWS, ROUTES, ProbeTable, build_fences, launch, route)
+
     rng = np.random.default_rng(m + bits)
     tt = torch.from_numpy(_probe_table(rng, m, bits)).to(cuda)
+    builds = sorted_probe_cuda.fence_builds
+    pt = ProbeTable(tt)
+    path = route(m, tt.data_ptr())
+    assert pt.route == path == ("fenced" if m >= FENCED_MIN_ROWS else "direct")
+    assert sorted_probe_cuda.fence_builds == builds + (path == "fenced")
+    assert (pt.fences is None) == (path == "direct")
+    forced = pt if path == "fenced" else ProbeTable(tt, fences=build_fences(tt))
+    assert sorted_probe_cuda.fence_builds == builds + 1
     for q in (1, 31, 3_500, 300_000):
         tq = torch.from_numpy(_probe_queries(rng, tt.cpu().numpy(), q)).to(cuda)
         f_r, p_r = sorted_probe_ref(tq, tt)
-        before = sorted_probe_cuda.launches
-        f, p = sorted_probe_cuda(tq, tt)
-        assert torch.equal(f, f_r) and torch.equal(p, p_r), (m, bits, q)
-        assert sorted_probe_cuda.launches == before + 1
+        before = (sorted_probe_cuda.launches,
+                  getattr(sorted_probe_cuda, f"{path}_launches"))
+        f, p = sorted_probe_cuda(tq, pt)
+        assert torch.equal(f, f_r) and torch.equal(p, p_r), (m, bits, q, path)
+        assert (sorted_probe_cuda.launches,
+                getattr(sorted_probe_cuda, f"{path}_launches")) == (
+                    before[0] + 1, before[1] + 1)
+        f2, p2 = sorted_probe_cuda(tq, pt)
+        assert torch.equal(f, f2) and torch.equal(p, p2)
+        direct = sorted_probe_cuda.direct_launches
+        f3, p3 = sorted_probe_cuda(tq, tt)
+        assert torch.equal(f3, f_r) and torch.equal(p3, p_r)
+        assert sorted_probe_cuda.direct_launches == direct + 1
+        for other in ROUTES:
+            po = torch.empty(q, dtype=torch.int32, device=cuda)
+            fo = torch.empty(q, dtype=torch.bool, device=cuda)
+            launch(other, forced, tq, po, fo)
+            assert torch.equal(fo, f_r) and torch.equal(po, p_r), (m, bits, q, other)
+    assert sorted_probe_cuda.fence_builds == builds + 1
 
 
 def test_sorted_probe_is_deterministic(cuda):
     """Two launches give the same bits, at a request's shape and a bulk
-    batch's."""
+    batch's, on both routes (a table of 100,003 rows and one past L2)."""
+    from repro_torch.kernels.sorted_probe.kernel import ProbeTable
+
     rng = np.random.default_rng(11)
-    tt = torch.from_numpy(_probe_table(rng, 1_000_003, 32)).to(cuda)
-    for q in (32, 300_000):
-        tq = torch.from_numpy(_probe_queries(rng, tt.cpu().numpy(), q)).to(cuda)
-        f1, p1 = sorted_probe_cuda(tq, tt)
-        f2, p2 = sorted_probe_cuda(tq, tt)
-        assert torch.equal(f1, f2) and torch.equal(p1, p2)
+    for m, path in ((100_003, "direct"), (9_000_001, "fenced")):
+        pt = ProbeTable(torch.from_numpy(_probe_table(rng, m, 32)).to(cuda))
+        assert pt.route == path
+        for q in (32, 300_000):
+            tq = torch.from_numpy(_probe_queries(rng, pt.table.cpu().numpy(), q)).to(cuda)
+            f1, p1 = sorted_probe_cuda(tq, pt)
+            f2, p2 = sorted_probe_cuda(tq, pt)
+            assert torch.equal(f1, f2) and torch.equal(p1, p2)
+
+
+def test_served_probe_stages_through_pinned_buffers(cuda):
+    """The store's served probe (one pinned copy in, one out) returns what
+    the plain version does, for requests that grow its staging buffers and
+    from several threads at once, on both routes."""
+    import threading
+
+    from repro_torch.core.store import _probe_starts_device
+    from repro_torch.kernels.sorted_probe.kernel import ProbeTable
+
+    rng = np.random.default_rng(5)
+    errors = []
+    for m in (100_000, 9_000_001):
+        t = _probe_table(rng, m, 32)
+        pt = ProbeTable(torch.from_numpy(t).to(cuda))
+        digests = (t[:, 0].astype(np.uint64) << np.uint64(32)) | t[:, 1]
+
+        def serve(seed):
+            r = np.random.default_rng(seed)
+            try:
+                for q in (1, 32, 1_000, 5_000, 70_000, 32):
+                    qd = np.concatenate([digests[r.integers(0, m, q - q // 3)],
+                                         r.integers(0, 2**64, q // 3, dtype=np.uint64)])
+                    found, starts = _probe_starts_device(pt, qd)
+                    pairs = np.stack([(qd >> np.uint64(32)).astype(np.uint32),
+                                      qd.astype(np.uint32)], axis=1)
+                    f_r, p_r = sorted_probe_ref(torch.from_numpy(pairs), pt.table.cpu())
+                    assert found.dtype == bool and starts.dtype == np.int64
+                    np.testing.assert_array_equal(found, f_r.numpy())
+                    np.testing.assert_array_equal(starts, p_r.numpy())
+            except Exception as e:  # noqa: BLE001  (reported below)
+                errors.append(e)
+
+        threads = [threading.Thread(target=serve, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    assert errors == []
 
 
 def test_hash_mix_sass_has_its_design_instruction(cuda):
@@ -191,6 +268,8 @@ def _tie_plane(rng, n, w, distinct):
     (5_000, 32, 3, 4_999, 100),     # k = N - 1: the filter route, one slice
     (5_000, 32, 3, 5_000, 100),     # k = N: the sort route
     (20_000, 32, 2, 20_000, 300),   # k = N above 16,384: two global strides
+    (20_000, 3, 1, 16, 30),         # filter<1, -1> (4-byte loads): the wide kernel
+    (20_000, 8, 2, 16, 30),         # filter<2, 0> (W = 8): the wide kernel
 ])
 def test_tanimoto_kernel_matches_plain(cuda, n, w, q, k, distinct):
     assert plan(q, n, w, k).route == ("filter" if k < n and k <= 8192 else "sort")

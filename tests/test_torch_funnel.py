@@ -146,7 +146,7 @@ def test_pinned_plane_device_probe_equals_per_shard(collision_store):
     want = base.lookup_batch(keys, probe="host")
     qs = T.IndexStore.open(root, device="cpu")
     qs.preload_digest_plane()
-    assert qs._probe_plane is not None and qs._probe_plane.dtype == torch.uint32
+    assert qs._probe_plane is not None and qs._probe_plane.table.dtype == torch.uint32
     got = qs.lookup_batch(keys, probe="device")
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a, b)
@@ -155,7 +155,7 @@ def test_pinned_plane_device_probe_equals_per_shard(collision_store):
     replica.adopt_planes(qs.preload_digest_plane())
     # the device table is shared, not uploaded again, and counted once
     assert replica._probe_plane is qs._probe_plane
-    plane_bytes = qs._probe_plane.numel() * 4
+    plane_bytes = qs._probe_plane.nbytes
     assert qs.resident_bytes() >= plane_bytes > replica.resident_bytes()
     for a, b in zip(want, replica.lookup_batch(keys, probe="device")):
         np.testing.assert_array_equal(a, b)
@@ -167,11 +167,78 @@ def test_device_tables_upload_once_and_count_as_resident(collision_store):
     before = qs.resident_bytes()
     qs.lookup_batch(keys[:200], probe="device")
     tables = dict(qs._probe_tables)
-    assert tables and all(t.shape[1] == 2 for t in tables.values())
+    assert tables and all(t.table.shape[1] == 2 for t in tables.values())
     qs.lookup_batch(keys[:200], probe="device")
     assert all(qs._probe_tables[s] is t for s, t in tables.items())
-    dev_bytes = sum(t.numel() * 4 for t in tables.values())
+    dev_bytes = sum(t.nbytes for t in tables.values())
     assert qs.resident_bytes() >= before + dev_bytes
+
+
+def test_device_tables_build_their_fences_once(collision_store, monkeypatch):
+    """Every digest table the store uploads is a ``ProbeTable``.  Under the
+    fenced route's line (these shards) it builds no fences; with the line
+    lowered to one row, so that these tables take the fenced route, the
+    fences are built once, at the upload: one build a touched shard, none on
+    a second batch, and ``resident_bytes`` counts table and fences."""
+    from repro_torch.kernels.sorted_probe import kernel as probe_kernel
+    from repro_torch.kernels.sorted_probe.kernel import ProbeTable, sorted_probe_cuda
+
+    root, _, keys = collision_store
+    builds = sorted_probe_cuda.fence_builds
+    direct = T.IndexStore.open(root, device="cpu")
+    direct.lookup_batch(keys, probe="device")
+    assert direct._probe_tables and sorted_probe_cuda.fence_builds == builds
+    assert all(t.route == "direct" and t.fences is None and t.nbytes == t.table.numel() * 4
+               for t in direct._probe_tables.values())
+    monkeypatch.setattr(probe_kernel, "FENCED_MIN_ROWS", 1)
+    qs = T.IndexStore.open(root, device="cpu")
+    qs.lookup_batch(keys, probe="device")
+    tables = dict(qs._probe_tables)
+    assert tables and all(isinstance(t, ProbeTable) for t in tables.values())
+    assert all(t.route == "fenced" for t in tables.values())
+    assert sorted_probe_cuda.fence_builds == builds + len(tables)
+    qs.lookup_batch(keys[::-1], probe="device")
+    assert sorted_probe_cuda.fence_builds == builds + len(tables)
+    assert all(qs._probe_tables[s].fences is t.fences for s, t in tables.items())
+    assert all(t.fence_bytes > 0 for t in tables.values())
+    assert all(t.nbytes == t.table.numel() * 4 + t.fence_bytes for t in tables.values())
+    owned = qs.resident_bytes()
+    qs._owns_tables = False  # what a replica sharing these tables counts
+    assert owned - qs.resident_bytes() == sum(t.nbytes for t in tables.values())
+
+
+def test_adopted_planes_share_their_fences_and_count_once(collision_store, monkeypatch):
+    """A replica that adopts the serving plane on the same device shares the
+    table and its fences (no build) and counts neither; the owner counts
+    both once (``ProbeTable.to``, which a replica on another device takes,
+    is held in ``test_torch_probe_design.py``).  The fenced route's line is
+    lowered to one row, so that this small plane builds fences."""
+    from repro_torch.kernels.sorted_probe import kernel as probe_kernel
+    from repro_torch.kernels.sorted_probe.kernel import sorted_probe_cuda
+
+    monkeypatch.setattr(probe_kernel, "FENCED_MIN_ROWS", 1)
+    root, _, keys = collision_store
+    qs = T.IndexStore.open(root, device="cpu")
+    builds = sorted_probe_cuda.fence_builds
+    planes = qs.preload_digest_plane()
+    assert sorted_probe_cuda.fence_builds == builds + 1
+    replica = T.IndexStore.open(root, device="cpu")
+    replica.adopt_planes(planes)
+    assert sorted_probe_cuda.fence_builds == builds + 1
+    assert replica._probe_plane is qs._probe_plane
+    assert replica._probe_plane.fences is qs._probe_plane.fences
+    pt = qs._probe_plane
+    assert pt.route == "fenced" and pt.fence_bytes > 0
+    assert pt.nbytes == pt.table.numel() * 4 + pt.fence_bytes
+    assert replica.resident_bytes() == 0  # it loaded nothing of its own
+    owned = qs.resident_bytes()
+    qs._owns_probe_plane = False
+    assert owned - qs.resident_bytes() == pt.nbytes
+    qs._owns_probe_plane = True
+    got = replica.lookup_batch(keys, probe="device")
+    want = qs.lookup_batch(keys, probe="host")
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_store_directories_cross_open(tmp_path):
