@@ -76,17 +76,27 @@
    from ``randn``, decay
    uniform in [0, 1); no PyTorch call computes the scan (``library_ms``
    null).  ``sample`` (``csrc/sample.cu``, the reference's
-   ``jax.random.categorical`` draw) against its plain version at yi-6b's
-   vocabulary (V = 64,000) and B = 8: the static engine's draw (one key
-   split in place; bf16 and f32) and the continuous engine's (per-lane
-   seeds and token indices, a float32 draw from f32 or bf16 logits, with
-   and without top-k 40).  The random bits and uniforms, which the kernel
-   copies out for the check, must equal the plain version's bit for bit,
-   the split key too, and the tokens except where the plain version's top
-   two scores lie within ``SAMPLE_NEAR_TIE`` (printed); timed queued behind
-   a sleep (the wrapper's host time hidden, as in a CUDA graph), back to
-   back and on the host, beside the plain version and ``torch.multinomial``
-   (not the same draw: ``library_ms`` null).
+   ``jax.random.categorical`` draw, one launch) against its plain version
+   at B = 8 and yi-6b's and gemma3-12b's vocabularies (V = 64,000 and
+   262,144): the static engine's draw (one key split in place by the
+   kernel; bf16 and f32) and the continuous engine's (per-lane seeds and
+   token indices, a float32 draw from f32 or bf16 logits, without top-k,
+   with its threshold given, found in the launch at k = 40 and at the cap
+   of 256, and from ``torch.topk`` at 257).  The random bits and uniforms,
+   which the kernel copies out for the check, must equal the plain
+   version's bit for bit, the split key too, the arrival counters must
+   read zero after each launch, and the tokens, of that launch and of one
+   as served (no copy), must be equal except where the plain version's top
+   two scores lie within ``SAMPLE_NEAR_TIE`` (printed).  Then the draws as
+   the engines make them, through
+   ``ops.sample`` (the threshold included): each timed queued behind a
+   sleep (the wrapper's host time hidden, as in a CUDA graph), back to
+   back and on the host, its kernels of one profiled call listed by name
+   (a draw with top-k at most the cap must be one ``sample_kernel``),
+   beside the bound (for the top-k draw: threefry of the logits kept and
+   a compare of each logit), the kernel's threshold key compares, the
+   plain version and
+   ``torch.multinomial`` (not the same draw: ``library_ms`` null).
 3. The funnel end to end on the card through ``repro_torch.launch.funnel``
    (corpus, index, publish, intersect, lookup_batch, extract + verify) at
    100,000 records, plus an extraction through 17-bit hashed keys whose
@@ -361,9 +371,11 @@ sys.path.insert(0, str(SRC))
 
 try:  # the kernels' work, as the dry-run counts it
     from repro_torch.kernels.work import (
-        attention_bwd_work, attention_work, sample_work, scan_work)
+        attention_bwd_work, attention_work, sample_select_work, sample_top_k_work,
+        sample_work, scan_work)
 except ImportError:  # run without the package: main() fails with the reason
-    attention_bwd_work = attention_work = sample_work = scan_work = None
+    attention_bwd_work = attention_work = sample_select_work = sample_work = None
+    sample_top_k_work = scan_work = None
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): the HBM3
 # rate, and the 32-bit integer rate: half the 67e12 FP32 CUDA-core rate,
@@ -514,6 +526,9 @@ SAMPLE_ROWS = 8
 SAMPLE_TEMPERATURE = 0.8
 SAMPLE_TOP_K = 40
 SAMPLE_SEED = 23
+# the sampler's vocabularies: yi-6b's (the served sampled engines') and
+# gemma3-12b's, the largest of the repo's configs
+SAMPLE_VOCABS = ("yi-6b", "gemma3-12b")
 # the kernel and the plain version may order two perturbed scores apart
 # only where they lie within a few float32 ulps (the card's logf against
 # PyTorch's log on the card, an ulp apart at most): the gap relative to
@@ -1230,108 +1245,219 @@ def ssd_scan_case(case, seed: int):
 
 
 def sample_case(seed: int):
-    """Hold the sampler kernel to its plain version on the card at yi-6b's
-    vocabulary and B = ``SAMPLE_ROWS``, in the draws the engines make: the
-    static engine's (one key split in place, bf16 and f32 logits, the draw
-    in their dtype) and the continuous engine's (per-lane seeds and token
-    indices, a float32 draw from f32 or bf16 logits, with and without
-    top-k).  Each element's random bits and uniform, which the kernel
-    copies out, must equal the plain version's bit for bit, and the split
-    key too; a token may differ only where the plain version's top two
-    scores lie within ``SAMPLE_NEAR_TIE`` (printed).  Then the static bf16
-    draw and the continuous f32 top-k draw are timed with their plain
-    versions, and ``torch.multinomial`` over the softmax, the draw the
-    engines made before (not the same function: no ``library_ms``)."""
+    """Hold the sampler kernel to its plain version on the card at
+    B = ``SAMPLE_ROWS`` and each vocabulary of ``SAMPLE_VOCABS``, in the
+    draws the engines make: the static engine's (one key split in place,
+    bf16 and f32 logits, the draw in their dtype) and the continuous
+    engine's (per-lane seeds and token indices, a float32 draw from f32 or
+    bf16 logits, without top-k, with the threshold given, found in the
+    launch at k = ``SAMPLE_TOP_K`` and at the cap, and given by
+    ``torch.topk`` above the cap).  Each element's random bits and uniform,
+    which the kernel copies out, must equal the plain version's bit for
+    bit, and the split key too; a token may differ only where the plain
+    version's top two scores lie within ``SAMPLE_NEAR_TIE`` (printed); the
+    arrival counters must read zero after.  Then the draws as the engines
+    call them (:func:`sample_engine_draws`), and the plain versions'
+    times; ``torch.multinomial`` over the softmax, the draw the engines
+    made before this kernel, is printed beside them (not the same function: no
+    ``library_ms``).  Returns row 6's numbers: the static bf16 draw at
+    yi-6b's vocabulary."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.sample import ops
     from repro_torch.kernels.sample import ref as S
-    from repro_torch.kernels.sample.kernel import sample_cuda
+    from repro_torch.kernels.sample.kernel import TOP_K_CAP, arrival_counters, sample_cuda
 
     dev = torch.device("cuda")
-    r, v = SAMPLE_ROWS, get_config("yi-6b").vocab_size
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed + 11)
-    logits32 = torch.randn((r, v), generator=g, device=dev) * 4
-    seeds = torch.randint(-2**31, 2**31, (r,), generator=g, device=dev,
-                          dtype=torch.int32)
-    index = torch.randint(0, SERVE_NEW_TOKENS, (r,), generator=g, device=dev,
-                          dtype=torch.int32)
-    cases = (("static bf16", torch.bfloat16, torch.bfloat16, "split", 0),
-             ("static f32", torch.float32, torch.float32, "split", 0),
-             ("continuous f32", torch.float32, torch.float32, "lanes", 0),
-             ("continuous f32 top-k", torch.float32, torch.float32, "lanes", SAMPLE_TOP_K),
-             ("continuous bf16 logits top-k", torch.bfloat16, torch.float32, "lanes",
-              SAMPLE_TOP_K))
-    err, timed_args = 0.0, {}
-    for name, ldt, ddt, mode, k in cases:
-        logits = logits32.to(ldt)
-        inv_t = S.inv_temperature(SAMPLE_TEMPERATURE, ddt)
-        kth = S.top_k_threshold(logits, k, inv_t, ddt) if k else None
-
-        def make():
-            if mode == "split":
-                return dict(keys=S.prng_key(seed, dev), split_key=True)
-            return dict(seeds=seeds, index=index)
-
-        kw, kw_ref = make(), make()
+    r = SAMPLE_ROWS
+    cases = (("static bf16", torch.bfloat16, torch.bfloat16, "split", {}),
+             ("static f32", torch.float32, torch.float32, "split", {}),
+             ("static bf16 top-k in the launch", torch.bfloat16, torch.bfloat16, "split",
+              {"top_k": SAMPLE_TOP_K}),
+             ("continuous f32", torch.float32, torch.float32, "lanes", {}),
+             ("continuous f32 top-k given", torch.float32, torch.float32, "lanes",
+              {"kth": SAMPLE_TOP_K}),
+             ("continuous f32 top-k in the launch", torch.float32, torch.float32, "lanes",
+              {"top_k": SAMPLE_TOP_K}),
+             ("continuous bf16 logits top-k in the launch", torch.bfloat16, torch.float32,
+              "lanes", {"top_k": SAMPLE_TOP_K}),
+             ("continuous f32 top-k at the cap", torch.float32, torch.float32, "lanes",
+              {"top_k": TOP_K_CAP}),
+             ("continuous f32 top-k above the cap", torch.float32, torch.float32, "lanes",
+              {"kth": TOP_K_CAP + 1}))
+    err, out = 0.0, {}
+    for arch in SAMPLE_VOCABS:
+        v = get_config(arch).vocab_size
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 11)
+        logits32 = torch.randn((r, v), generator=g, device=dev) * 4
+        seeds = torch.randint(-2**31, 2**31, (r,), generator=g, device=dev,
+                              dtype=torch.int32)
+        index = torch.randint(0, SERVE_NEW_TOKENS, (r,), generator=g, device=dev,
+                              dtype=torch.int32)
         noise = (torch.empty((r, v), dtype=torch.int32, device=dev),
                  torch.empty((r, v), device=dev))
-        got = sample_cuda(logits, inv_t, ddt, kth=kth, noise=noise, **kw)
-        bits = S.sample_bits(r, v, dev, **make())
-        scores = S.sample_scores(logits, inv_t, ddt, kth=kth, **kw_ref)
-        torch.cuda.synchronize()
-        if not torch.equal(noise[0].long() & M32, bits):
-            fail(f"sample[{name}]: the kernel's random bits differ from the plain version's")
-        if not torch.equal(noise[1], S.uniform_of_bits(bits, ddt)):
-            fail(f"sample[{name}]: the kernel's uniforms differ from the plain version's")
-        if mode == "split" and not torch.equal(kw["keys"].view(torch.int32),
-                                               kw_ref["keys"].view(torch.int32)):
-            fail(f"sample[{name}]: the kernel's split key differs")
-        want = torch.argmax(scores, dim=-1).to(torch.int32)
-        gap = S.top_two_gap(scores)
-        differ = (got != want).nonzero().flatten().tolist()
-        for row in differ:
-            print(f"sample[{name}]: row {row} token {int(got[row])} != plain "
-                  f"{int(want[row])}, top-two gap {float(gap[row]):.3e} (tolerance "
-                  f"{SAMPLE_NEAR_TIE:.3e})", flush=True)
-            if float(gap[row]) > SAMPLE_NEAR_TIE:
-                fail(f"sample[{name}]: row {row} parts from the plain version outside "
-                     "a near-tie")
-            err = max(err, float(scores[row, want[row]] - scores[row, got[row]]))
-        print(f"sample[{name}]: R={r} V={v} {str(ldt)[6:]} logits, {str(ddt)[6:]} "
-              f"draw, top_k={k}: bits and uniforms bit-exact ({r * v} each), tokens "
-              f"{r - len(differ)} of {r} equal; smallest top-two gap "
-              f"{float(gap.min()):.3e}", flush=True)
-        timed_args[name] = (logits, inv_t, ddt, make, kth)
+        for name, ldt, ddt, mode, thr in cases:
+            logits = logits32.to(ldt)
+            inv_t = S.inv_temperature(SAMPLE_TEMPERATURE, ddt)
+            k = thr.get("top_k") or thr.get("kth") or 0
+            kth = S.top_k_threshold(logits, k, inv_t, ddt) if k else None
+            given = {"kth": kth} if "kth" in thr else dict(thr)
+
+            def make():
+                if mode == "split":
+                    return dict(keys=S.prng_key(seed, dev), split_key=True)
+                return dict(seeds=seeds, index=index)
+
+            kw, kw_ref = make(), make()
+            got = sample_cuda(logits, inv_t, ddt, noise=noise, **given, **kw)
+            served = sample_cuda(logits, inv_t, ddt, **given, **make())  # as served
+            bits = S.sample_bits(r, v, dev, **make())
+            scores = S.sample_scores(logits, inv_t, ddt, kth=kth, **kw_ref)
+            torch.cuda.synchronize()
+            label = f"sample[{name}, V={v}]"
+            if not torch.equal(noise[0].long() & M32, bits):
+                fail(f"{label}: the kernel's random bits differ from the plain version's")
+            if not torch.equal(noise[1], S.uniform_of_bits(bits, ddt)):
+                fail(f"{label}: the kernel's uniforms differ from the plain version's")
+            if mode == "split" and not torch.equal(kw["keys"].view(torch.int32),
+                                                   kw_ref["keys"].view(torch.int32)):
+                fail(f"{label}: the kernel's split key differs")
+            if any(c.any() for c in arrival_counters()):
+                fail(f"{label}: an arrival counter is not zero after the launch")
+            want = torch.argmax(scores, dim=-1).to(torch.int32)
+            gap = S.top_two_gap(scores)
+            equal = {}
+            for how, tokens in (("noise copied", got), ("served", served)):
+                differ = (tokens != want).nonzero().flatten().tolist()
+                for row in differ:
+                    print(f"{label} {how}: row {row} token {int(tokens[row])} != plain "
+                          f"{int(want[row])}, top-two gap {float(gap[row]):.3e} "
+                          f"(tolerance {SAMPLE_NEAR_TIE:.3e})", flush=True)
+                    if float(gap[row]) > SAMPLE_NEAR_TIE:
+                        fail(f"{label} {how}: row {row} parts from the plain version "
+                             "outside a near-tie")
+                    err = max(err, float(scores[row, want[row]] - scores[row, tokens[row]]))
+                equal[how] = r - len(differ)
+            print(f"{label}: R={r} {str(ldt)[6:]} logits, {str(ddt)[6:]} draw, "
+                  f"{next(iter(thr), 'no top-k')}={k}: bits and uniforms bit-exact "
+                  f"({r * v} each), tokens {equal['noise copied']} of {r} equal with the "
+                  f"noise copied out, {equal['served']} of {r} as served; counters "
+                  f"zero; smallest top-two gap {float(gap.min()):.3e}", flush=True)
+            del bits, scores
+        del noise
+        torch.cuda.empty_cache()
+        timed = sample_engine_draws(ops.sample, sample_cuda, S, logits32, seeds, index)
+        logits = logits32.to(torch.bfloat16)
+        inv_t = S.inv_temperature(SAMPLE_TEMPERATURE, torch.bfloat16)
+        key = S.prng_key(seed, dev)
+        plain = cuda_ms(lambda: S.sample_ref(logits, inv_t, torch.bfloat16, keys=key,
+                                             split_key=True), 5, warmup=1)
+        inv32 = S.inv_temperature(SAMPLE_TEMPERATURE, torch.float32)
+        plain_k = cuda_ms(lambda: S.sample_ref(
+            logits32, inv32, torch.float32, seeds=seeds, index=index,
+            kth=S.top_k_threshold(logits32, SAMPLE_TOP_K, inv32, torch.float32)), 5,
+            warmup=1)
+        probs = torch.softmax(logits.float() * inv_t, dim=-1)
+        multi = queued_ms(lambda: torch.multinomial(probs, 1), 100)
+        print(f"sample[V={v}]: plain_ms static bf16 {plain:.6f}, continuous f32 top-k "
+              f"{plain_k:.6f} (torch.topk included); library_ms=null (no PyTorch call "
+              f"draws jax.random's tokens; torch.multinomial over the softmax, the "
+              f"engines' draw before: {multi:.6f} ms queued)", flush=True)
+        if arch == SAMPLE_VOCABS[0]:
+            main = timed["static bf16"]
+            out = dict(ms=main["ms"], plain_ms=plain, library_ms=None,
+                       bound_ms=main["bound_ms"], bound_by=main["bound_by"])
+        del logits32, logits, probs
+        torch.cuda.empty_cache()
+    return dict(out, max_abs_err=err)
+
+
+def sample_engine_draws(sample, sample_cuda, S, logits32, seeds, index) -> dict:
+    """Time the draws as the engines make them, through the entry point
+    ``sample`` (``ops.sample``; the threshold included): the static
+    engine's bf16 draw with the key split in place, and the continuous
+    engine's float32 lane draw with and without top-k ``SAMPLE_TOP_K``;
+    each queued behind a sleep (the host's enqueue hidden, as in a CUDA
+    graph), back to back, and on the host's clock, the wrapper
+    ``sample_cuda``'s host time beside; the kernels of one profiled call
+    by name and their summed device time (the measure that holds where the
+    host cannot enqueue a draw within its device time), beside the bound
+    and its share: ``sample_work`` (every logit's bits) for the draws
+    without top-k, ``sample_top_k_work`` (the bits of the logits at or
+    above the row's threshold, counted from this run's logits, and a
+    compare of every logit) for the top-k draw.  The
+    modules are arguments so that another checkout's package can be timed
+    the same way (``scripts/sample_timing.py``).  A draw with top-k at
+    most the package's cap must be one kernel where the package has a cap
+    (``kernel.TOP_K_CAP``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = logits32.device
+    r, v = logits32.shape
+    bf16 = logits32.to(torch.bfloat16)
+    key = S.prng_key(SAMPLE_SEED, dev)
+    inv_b = S.inv_temperature(SAMPLE_TEMPERATURE, torch.bfloat16)
+    inv_f = S.inv_temperature(SAMPLE_TEMPERATURE, torch.float32)
+    draws = {
+        "static bf16": (
+            lambda: sample(bf16, SAMPLE_TEMPERATURE, key=key, split_key=True),
+            lambda: sample_cuda(bf16, inv_b, torch.bfloat16, keys=key, split_key=True),
+            bf16),
+        "continuous f32 top-k": (
+            lambda: sample(logits32, SAMPLE_TEMPERATURE, seeds=seeds, index=index,
+                           top_k=SAMPLE_TOP_K, dtype=torch.float32),
+            None, logits32),
+        "continuous f32": (
+            lambda: sample(logits32, SAMPLE_TEMPERATURE, seeds=seeds, index=index,
+                           dtype=torch.float32),
+            lambda: sample_cuda(logits32, inv_f, torch.float32, seeds=seeds, index=index),
+            logits32),
+    }
+    one_kernel = hasattr(sys.modules[sample_cuda.__module__], "TOP_K_CAP")
     out = {}
-    for name in ("static bf16", "continuous f32 top-k"):
-        logits, inv_t, ddt, make, kth = timed_args[name]
-        kw = make()
-
-        def draw():
-            return sample_cuda(logits, inv_t, ddt, kth=kth, **kw)
-
-        # queued behind a sleep: the wrapper's host time (allocations, the
-        # ctypes call) is hidden, as it is inside a CUDA graph
+    for name, (draw, wrapper, lg) in draws.items():
         ms = queued_ms(draw, 100)
         paced = cuda_ms(draw, 200)
         host = host_us(draw, 1000)
-        plain = cuda_ms(lambda: S.sample_ref(logits, inv_t, ddt, kth=kth, **kw), 5,
-                        warmup=1)
-        probs = torch.softmax(logits.float() * inv_t, dim=-1)
-        multi = queued_ms(lambda: torch.multinomial(probs, 1), 100)
-        ops, nbytes = sample_work(r, v, logits.element_size())
+        wrapper_host = host_us(wrapper, 1000) if wrapper is not None else None
+        draw()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            draw()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e.name for e in events]
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        if one_kernel and (len(kernels) != 1 or "sample_kernel" not in kernels[0]):
+            fail(f"sample[{name}, V={v}]: a draw is not one sample kernel: {kernels}")
+        if "top-k" in name:
+            scaled = S.scale_logits(lg, inv_f, torch.float32)
+            kth = S.top_k_threshold(lg, SAMPLE_TOP_K, inv_f, torch.float32)
+            kept = int((scaled >= kth[:, None]).sum())
+            ops, nbytes = sample_top_k_work(r, v, lg.element_size(), kept)
+            work = f"int_ops={ops} (threefry of the {kept} logits kept and a compare each)"
+            del scaled
+        else:
+            ops, nbytes = sample_work(r, v, lg.element_size())
+            work = f"int_ops={ops}"
         bnd, by = bound_ms(nbytes, ops)
-        print(f"sample[{name}]: kernel_ms={ms:.6f} (queued; back to back "
-              f"{paced:.6f}, host {host:.1f} us a call) plain_ms={plain:.6f} "
-              f"library_ms=null (no PyTorch call draws jax.random's tokens; "
-              f"torch.multinomial over the softmax, the engines' draw before: "
-              f"{multi:.6f} ms queued) int_ops={ops} bytes={nbytes} bound_ms={bnd:.6f} "
-              f"({by})", flush=True)
-        out.setdefault("main", dict(ms=ms, plain_ms=plain, library_ms=None,
-                                    bound_ms=bnd, bound_by=by, max_abs_err=err))
-    del logits32, timed_args, noise
-    torch.cuda.empty_cache()
-    return out["main"]
+        wh = f"{wrapper_host:.3f}" if wrapper_host is not None else "n/a"
+        select = ""
+        if one_kernel and "top-k" in name:
+            parts, chunk = sys.modules[sample_cuda.__module__].geometry(r, v)
+            select = (f"; the kernel's threshold key compares, at most, "
+                      f"{sample_select_work(r, v, SAMPLE_TOP_K, parts, chunk)} "
+                      f"({parts} chunks of {chunk})")
+        print(f"sample_draw[{name}, V={v}]: kernel_ms={ms:.6f} (queued; back to back "
+              f"{paced:.6f}) host_us={host:.3f} a call through ops.sample "
+              f"(sample_cuda alone {wh}); {work} bytes={nbytes} "
+              f"bound_ms={bnd:.6f} ({by}), share {bnd / ms:.4f}{select}; kernels of one "
+              f"profiled call ({len(kernels)}, {busy:.6f} ms on the card): "
+              f"{json.dumps([n[:60] for n in kernels])}", flush=True)
+        out[name] = dict(ms=ms, paced_ms=paced, host_us=host, wrapper_host_us=wrapper_host,
+                         bound_ms=bnd, bound_by=by, kernels=kernels, profiled_ms=busy)
+    return out
 
 
 def sampled_serving_phase(engine, prompts, greedy_tokens, card: str):

@@ -26,7 +26,8 @@ import threading
 from typing import Dict, Iterator, Optional, Tuple
 
 __all__ = ["SAMPLE_INT_OPS", "attention_bwd_work", "attention_work", "counting",
-           "record", "sample_work", "scan_work", "tanimoto_work", "visible_pairs"]
+           "record", "sample_select_work", "sample_top_k_work", "sample_work", "scan_work",
+           "tanimoto_work", "visible_pairs"]
 
 # 32-bit integer operations per logit of ``sample``: threefry-2x32's 20
 # rounds of add, rotate and xor (60), the two words' first key addition
@@ -86,6 +87,32 @@ def sample_work(r: int, v: int, itemsize: int) -> Tuple[int, int]:
     bits of every logit; the ``(R, V)`` logits read once and the ``(R,)``
     int32 tokens written."""
     return SAMPLE_INT_OPS * r * v, itemsize * r * v + 4 * r
+
+
+def sample_top_k_work(r: int, v: int, itemsize: int, kept: int) -> Tuple[int, int]:
+    """(32-bit integer operations, bytes) of one ``sample`` that masks each
+    row below its top-k threshold: the threefry bits of the ``kept`` logits
+    only (those at or above their row's threshold; the rest are masked
+    whatever their noise) and one compare of every logit's key (the
+    threshold is found by reading each at least once); the bytes are
+    :func:`sample_work`'s.  Data-dependent: ``kept`` is k a row and the
+    logits tied with the k-th."""
+    return SAMPLE_INT_OPS * kept + r * v, itemsize * r * v + 4 * r
+
+
+def sample_select_work(r: int, v: int, k: int, parts: int, chunk: int) -> int:
+    """Key compares, at most, of the top-k threshold that ``sample``'s
+    kernel finds in its launch (printed beside the bound): a
+    chunk longer than k reads its keys in four passes of its radix select
+    (fewer rounds and a maximum when one ends early) and a listing pass (a
+    shorter chunk only lists them); the row's folding block reads the
+    ``parts * k`` listed keys in four passes and one more, and the tie
+    keys."""
+    per_row = 5 * parts * k + parts
+    for p in range(parts):
+        n = min(chunk, v - p * chunk)
+        per_row += 5 * n if n > k else n
+    return r * per_row
 
 
 def tanimoto_work(nq: int, n: int, w: int, k: int) -> Tuple[int, int]:

@@ -12,6 +12,7 @@ The kernels are built from ``src/repro_torch/csrc`` at first use.
 import numpy as np
 import pytest
 import torch
+import torch_sample_rows as sample_rows
 
 from repro_torch.kernels.hash_mix.kernel import hash_mix_cuda
 from repro_torch.kernels.hash_mix.ref import hash_mix_ref
@@ -1126,6 +1127,7 @@ def test_continuous_decode_graph_equals_eager_on_the_card(cuda):
     assert out[None] == out["eager"]
 
 
+SAMPLE_KS = sample_rows.KS   # 1, 40, the cap, the cap + 1, V
 SAMPLE_CASES = [  # (R, V, top_k): yi-6b's vocabulary at B = 8, a lane, odd V
     (8, 64000, 0), (8, 64000, 40), (1, 64000, 0), (3, 50257, 7), (5, 1001, 1),
     (64, 32000, 0),
@@ -1160,26 +1162,151 @@ def test_sample_kernel_matches_plain(cuda, r, v, top_k, logits_dtype, draw):
                           dtype=torch.int32)
     index = torch.randint(0, 100, (r,), generator=g, device=cuda, dtype=torch.int32)
     keys = S.split(S.prng_key(7, cuda), r)
+    # the threshold given (kth), and found in the launch (top_k)
+    thresholds = [dict(kth=kth)] + ([dict(top_k=top_k)] if top_k else [])
     for make in (lambda: dict(keys=S.prng_key(3, cuda), split_key=True),
                  lambda: dict(seeds=seeds, index=index), lambda: dict(keys=keys)):
-        kw, kw_ref = make(), make()
-        before = sample_cuda.launches
-        noise = (torch.empty((r, v), dtype=torch.int32, device=cuda),
-                 torch.empty((r, v), device=cuda))
-        got = sample_cuda(logits, inv_t, ddt, kth=kth, noise=noise, **kw)
-        bits = S.sample_bits(r, v, cuda, **make())
-        scores = S.sample_scores(logits, inv_t, ddt, kth=kth, **kw_ref)
+        for thr in thresholds:
+            kw, kw_ref = make(), make()
+            before = sample_cuda.launches
+            noise = (torch.empty((r, v), dtype=torch.int32, device=cuda),
+                     torch.empty((r, v), device=cuda))
+            got = sample_cuda(logits, inv_t, ddt, noise=noise, **thr, **kw)
+            bits = S.sample_bits(r, v, cuda, **make())
+            scores = S.sample_scores(logits, inv_t, ddt, kth=kth, **kw_ref)
+            torch.cuda.synchronize()
+            assert sample_cuda.launches == before + 1
+            assert torch.equal(noise[0].long() & S.M32, bits)   # bit for bit
+            assert torch.equal(noise[1], S.uniform_of_bits(bits, ddt))
+            if kw.get("split_key"):  # the new key, written by the kernel
+                assert torch.equal(kw["keys"].view(torch.int32),
+                                   kw_ref["keys"].view(torch.int32))
+            want = torch.argmax(scores, dim=-1).to(torch.int32)
+            differ = got != want
+            assert (S.top_two_gap(scores)[differ] <= SAMPLE_NEAR_TIE).all()
+            assert torch.equal(sample_cuda(logits, inv_t, ddt, **thr, **make()), got)
+            _counters_at_zero()
+
+
+def _counters_at_zero():
+    from repro_torch.kernels.sample.kernel import arrival_counters
+
+    torch.cuda.synchronize()
+    counters = arrival_counters()
+    assert counters and all(not c.any() for c in counters)
+
+
+@pytest.mark.parametrize("draw", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", SAMPLE_KS, ids=sample_rows.k_id)
+@pytest.mark.parametrize("r,v", sample_rows.GEOMETRIES)
+def test_sample_threshold_in_the_launch_on_special_rows(cuda, r, v, k, draw):
+    """The engines' draw (``ops.sample`` from seeds and token indices) on
+    the rows that break a careless fold, at every chunk count of the repo's
+    vocabularies at R = 1 and 8 and on both sides of the cap: the plain
+    version's tokens on the same card tensors (except at a near-tie of its
+    scores), the counters at zero after."""
+    from repro_torch.kernels.sample import ref as S
+    from repro_torch.kernels.sample.kernel import geometry
+    from repro_torch.kernels.sample.ops import sample
+
+    dt = getattr(torch, draw)
+    _, chunk = geometry(r, v)
+    kk = v if k is None else k
+    lg = torch.from_numpy(sample_rows.special_rows(
+        r, v, kk, chunk, v + r, sample_rows.kind_offset(k))).to(device=cuda, dtype=dt)
+    g = torch.Generator(device=cuda).manual_seed(v + kk)
+    seeds = torch.randint(-2**31, 2**31, (r,), generator=g, device=cuda, dtype=torch.int32)
+    index = torch.randint(0, 64, (r,), generator=g, device=cuda, dtype=torch.int32)
+    got = sample(lg, 0.8, seeds=seeds, index=index, top_k=kk, dtype=dt)
+    inv_t = S.inv_temperature(0.8, dt)
+    scores = S.sample_scores(lg, inv_t, dt, seeds=seeds, index=index,
+                             kth=S.top_k_threshold(lg, kk, inv_t, dt))
+    want = torch.argmax(scores, dim=-1).to(torch.int32)
+    differ = got != want
+    assert (S.top_two_gap(scores)[differ] <= SAMPLE_NEAR_TIE).all(), (
+        got[differ], want[differ])
+    _counters_at_zero()
+
+
+def test_sample_graph_replays_equal_eager_and_leave_counters_at_zero(cuda):
+    """A captured draw, replayed 50 times: the split-key draw gives eager's
+    50 tokens and keys in turn (the key split in place by the kernel), the
+    lanes' top-k draw eager's tokens each time; the arrival counters read
+    zero after the eager calls and after the replays."""
+    from repro_torch.kernels.sample import ref as S
+    from repro_torch.kernels.sample.ops import sample
+
+    g = torch.Generator(device=cuda).manual_seed(29)
+    logits = (torch.randn((8, 64000), generator=g, device=cuda) * 3)
+    seeds = torch.randint(-2**31, 2**31, (8,), generator=g, device=cuda, dtype=torch.int32)
+    index = torch.randint(0, 64, (8,), generator=g, device=cuda, dtype=torch.int32)
+    bf16 = logits.bfloat16()
+    draws = {
+        "split": lambda key: sample(bf16, 0.8, key=key, split_key=True),
+        "lanes": lambda key: sample(logits, 0.8, seeds=seeds, index=index, top_k=40,
+                                    dtype=torch.float32),
+    }
+    for name, draw in draws.items():
+        key = S.prng_key(5, cuda)
+        eager, keys = [], []
+        for _ in range(50):
+            eager.append(draw(key))
+            keys.append(key.clone())
+        _counters_at_zero()
+        static_key = S.prng_key(5, cuda)
+        side = torch.cuda.Stream(cuda)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            draw(static_key)   # a warm-up, as the engines' before they capture
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = draw(static_key)
+        static_key.copy_(S.prng_key(5, cuda))
+        for i in range(50):
+            graph.replay()
+            assert torch.equal(out, eager[i]), (name, i)
+            if name == "split":
+                assert torch.equal(static_key.view(torch.int32), keys[i].view(torch.int32))
+        _counters_at_zero()
+
+
+def test_sample_draw_is_one_kernel(cuda):
+    """For top_k <= the cap (and without top-k), a draw through the entry
+    point is one launch of the sample kernel: no topk, sort, copy or fill
+    kernel in the profiler's list; above the cap the threshold takes
+    torch.topk's kernels beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.sample import ref as S
+    from repro_torch.kernels.sample.kernel import TOP_K_CAP
+    from repro_torch.kernels.sample.ops import sample
+
+    logits = torch.randn((8, 64000), device=cuda)
+    seeds = torch.arange(8, device=cuda, dtype=torch.int32)
+    key = S.prng_key(1, cuda)
+    bf16 = logits.bfloat16()
+    cases = {
+        "static": lambda: sample(bf16, 0.8, key=key, split_key=True),
+        "lanes top-k": lambda: sample(logits, 0.8, seeds=seeds, index=seeds, top_k=40,
+                                      dtype=torch.float32),
+        "lanes top-k at the cap": lambda: sample(logits, 0.8, seeds=seeds, index=seeds,
+                                                 top_k=TOP_K_CAP, dtype=torch.float32),
+        "lanes above the cap": lambda: sample(logits, 0.8, seeds=seeds, index=seeds,
+                                              top_k=TOP_K_CAP + 1, dtype=torch.float32),
+    }
+    for name, draw in cases.items():
+        draw()
         torch.cuda.synchronize()
-        assert sample_cuda.launches == before + 1
-        assert torch.equal(noise[0].long() & S.M32, bits)   # bit for bit
-        assert torch.equal(noise[1], S.uniform_of_bits(bits, ddt))
-        if kw.get("split_key"):  # the new key, written by the kernel
-            assert torch.equal(kw["keys"].view(torch.int32),
-                               kw_ref["keys"].view(torch.int32))
-        want = torch.argmax(scores, dim=-1).to(torch.int32)
-        differ = got != want
-        assert (S.top_two_gap(scores)[differ] <= SAMPLE_NEAR_TIE).all()
-        assert torch.equal(sample_cuda(logits, inv_t, ddt, kth=kth, **make()), got)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            draw()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if name == "lanes above the cap":
+            assert len(kernels) > 1 and any("sample_kernel" in n for n in kernels)
+        else:
+            assert len(kernels) == 1 and "sample_kernel" in kernels[0], (name, kernels)
 
 
 def test_sample_kernel_refuses_what_it_does_not_take(cuda):
@@ -1199,6 +1326,18 @@ def test_sample_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="seeds"):
         sample_cuda(lg, 1.0, torch.float32, seeds=torch.zeros(4, device=cuda),
                     index=torch.zeros(4, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="top_k or kth"):
+        sample_cuda(lg, 1.0, torch.float32, keys=key, top_k=3,
+                    kth=torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError, match="pass its kth"):
+        sample_cuda(torch.zeros((4, 1000), device=cuda), 1.0, torch.float32, keys=key,
+                    top_k=257)
+    # a shape's first draw must not be captured: its workspace's counters
+    # are zeroed when it is made
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="first draw"):
+        with torch.cuda.graph(graph):
+            sample_cuda(torch.zeros((3, 777), device=cuda), 1.0, torch.float32, keys=key)
 
 
 def test_continuous_sampled_decode_graph_equals_eager_on_the_card(cuda):
