@@ -54,8 +54,9 @@
    8, S = 256 image positions + 2,048 = 2,304, D = 128, causal),
    qwen3-moe-235b-a22b (B = 8, Hq = 64, Hkv = 4: 16 query heads a KV head,
    S = 2,048, D = 128, causal) and jamba-1.5-large-398b's attention layer
-   (B = 8, Hq = 64, Hkv = 8, S = 2,048, D = 128, causal), each timed warm
-   and with L2 flushed before each launch.
+   (B = 8, Hq = 64, Hkv = 8, S = 2,048, D = 128, causal), and at
+   qwen2-72b's prefill_32k (B = 1, Hq = 64, Hkv = 8, S = 32,768, D = 128,
+   causal), each timed warm and with L2 flushed before each launch.
    At every attention shape the kernel also runs as training calls it,
    writing the rows' log-sum-exp: the output must be bit-identical and the
    lse within 1e-5 (1 + |lse|) of ``attention_lse_ref`` (+inf exactly
@@ -249,6 +250,35 @@
    layers (42.3 GB) with 8: the same tokens over 2 runs, none in decode,
    the profile, the eager/graph turns, and the graph decode's ITL beside
    the step's weight-read bound (the weights' bytes over 3.35 TB/s).
+9d. The QKV-bias family: qwen2-72b and qwen1.5-110b.  Both inits draw the
+   biases as zeros (the reference's), so every run here draws them after
+   the init from N(0, 1), the size of a projection's output
+   (``models.common.draw_qkv_biases``, which ``launch.serve.run`` calls
+   after its init too).  The model check of step 5 at full width cut to 2
+   layers, float32 (~17.0 and ~20.8 GB a side, drawn on the card and
+   copied to the host): logits and every layer's K/V cache within
+   ``MODEL_ATOL``/``MODEL_RTOL``, 2 ``flash_attention`` launches, and a
+   negative control: layer 0's ``bv`` zeroed on the card, the logits must
+   fall outside the tolerance (by how much, printed).  Then step 6's
+   continuous parity for qwen2-72b at 2 layers, float32, prefix sharing on
+   and off (``lm_prefill_suffix`` and ``lm_decode_step_paged`` carry the
+   biases): the continuous engine's greedy tokens equal the static
+   engine's and prefix on's equal off's (a differing token only at a
+   printed near-tie), suffix-prefill logits within ``SUFFIX_ATOL`` of full
+   prefill's.  Then both served as in step 6 at their published widths
+   cut to 16 of their 80 layers, bf16, through ``launch.serve.run``
+   (which draws the biases after its init): the weights' bytes equal
+   the config's figures (``dense_weight_figures``, printed: parameters a
+   layer, embedding and head), the same tokens over 2 runs, 16
+   tensor-core launches a prefill and none in decode, the profile, the
+   eager/graph turns and the graph ITL beside the weight-read bound.  On
+   qwen2-72b's 16 served layers, its prefill_32k / decode_32k length: one
+   prompt of 32,768 tokens (BOS and corpus records joined to 32,767 bytes)
+   into a 32,800-row cache, 32 new tokens, served twice (the same tokens,
+   16 tensor-core launches a prefill, prefill ms beside its compute bound,
+   the two runs' own peak), then the eager/graph turns (tokens identical),
+   the profile and the graph ITL beside the step's read bound (weights and
+   cache).
 10. MoE: moonshot-v1-16b-a3b at full width cut to 2 layers, float32, card
    against CPU: the router's top-6 experts first (flips only at a
    probability near-tie pass), then prefill logits within
@@ -278,13 +308,14 @@
    rowsum(dO * O)`` and one that drops keys 0..63 outside it, two
    launches bit-identical, the lse held to its plain version; timed warm
    and cold beside the PyTorch-ops backward (the plain version) and
-   SDPA's backward.  Then, after the MoE phases: yi-6b,
-   moonshot-v1-16b-a3b and mamba2-1.3b at full width cut to 2 layers in
-   float32, one train state, one batch: loss and every parameter's
-   gradient card against CPU within ``MODEL_ATOL``/``MODEL_RTOL``, none
-   zero on the card where the CPU's is not, 2 ``flash_attention`` or 3
-   ``ssd_scan`` launches a layer; ``Trainer`` on jamba's smoke config on
-   the card crashes at step 3 and resumes from step 2's checkpoint bit
+   SDPA's backward.  Then, after the MoE and QKV-bias phases: yi-6b,
+   moonshot-v1-16b-a3b, mamba2-1.3b and qwen2-72b (its biases drawn as in
+   step 9d, its batch 2 x 128 tokens: ``TRAIN_PARITY_SHORT``) at full
+   width cut to 2 layers in float32, one train state, one batch: loss and every parameter's gradient card against CPU within
+   ``MODEL_ATOL``/``MODEL_RTOL`` (the bias gradients' errors printed by
+   name), none zero on the card where the CPU's is not, 2
+   ``flash_attention`` or 3 ``ssd_scan`` launches a layer; ``Trainer`` on
+   jamba's smoke config on the card crashes at step 3 and resumes from step 2's checkpoint bit
    for bit; and full-size training through ``launch.train``'s trainer
    (``build``, then ``Trainer.run``; B = 4 x 2,048 tokens of the
    index-backed corpus, bf16 compute over float32 masters and moments):
@@ -337,7 +368,8 @@
    ``hash_mix`` in the service, ``digest_ids`` and training's batch
    verify, ``flash_attention`` in yi-6b's static and continuous serving,
    whisper-small's, gemma3-12b's, internvl2-76b's static and continuous,
-   jamba's, qwen3-moe's, moonshot's, training (gemma3's included, as in
+   jamba's, qwen3-moe's, qwen2-72b's (its 32,768-token prompt's too),
+   qwen1.5-110b's, moonshot's, training (gemma3's included, as in
    the backward's) and the mesh phase, ``ssd_scan`` in mamba2's and
    jamba's serving, training and the mesh trainer; kernel bounds from
    ``repro_torch.kernels.work``, the dry-run's own formulas; ``tanimoto``'s
@@ -449,6 +481,8 @@ FA_VLM_SERVED = FaCase("internvl2-76b served", 8, 64, 8, 2304, 2304, 128)
 # 16 a group) and of jamba-1.5-large-398b's attention layer (64:8)
 FA_QWEN3_SERVED = FaCase("qwen3-moe-235b-a22b served", 8, 64, 4, 2048, 2048, 128)
 FA_HYBRID_SERVED = FaCase("jamba-1.5-large-398b served", 8, 64, 8, 2048, 2048, 128)
+# qwen2-72b's prefill_32k: one 32,768-token row, 64 query heads to 8 KV heads
+FA_QWEN2_32K = FaCase("qwen2-72b prefill_32k", 1, 64, 8, 32768, 32768, 128)
 FA_SUFFIX = (FaCase("yi-6b suffix", 1, 32, 4, 512, 2048, 128, paged=True),
              FaCase("yi-6b suffix short", 1, 32, 4, 48, 1072, 128, paged=True),
              FaCase("yi-6b suffix unaligned", 1, 32, 4, 208, 1248, 128, paged=True))
@@ -520,6 +554,20 @@ VLM_SERVE_LAYERS = 16
 SERVE_LENGTHS = (17, 64, 160, 384, 768, 1152, 1600, 2047)  # prompt bytes
 SERVE_NEW_TOKENS = 32
 SERVE_MAX_LEN = 4096
+# the QKV-bias family at its published widths: qwen2-72b and qwen1.5-110b,
+# 2 layers for the float32 checks (~17.0 and ~20.8 GB a side) and 16 of
+# their 80 served in bf16 (~33.1 and ~48.5 GB; all 80 need ~140 and ~222
+# GB).  Both inits draw zero biases (the reference's); every check and
+# served run here draws them from N(0, 1) after the init (draw_qkv_biases), the
+# size of a projection's output, so that a lost or misplaced bias moves the
+# logits far outside the tolerance.  qwen2's prefill_32k / decode_32k
+# length: one prompt of LONG_PROMPT_TOKENS (BOS and 32,767 corpus bytes)
+# into a LONG_MAX_LEN cache, SERVE_NEW_TOKENS new tokens
+QWEN2 = "qwen2-72b"
+QWEN15 = "qwen1.5-110b"
+QWEN_SERVE_LAYERS = 16
+LONG_PROMPT_TOKENS = 32_768
+LONG_MAX_LEN = LONG_PROMPT_TOKENS + SERVE_NEW_TOKENS
 # sampled serving and the sampler kernel: the decode batch, a temperature
 # and top-k, the static engine's seed and the requests' first seed
 SAMPLE_ROWS = 8
@@ -1152,7 +1200,11 @@ def attention_case(case: FaCase, seed: int):
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     cold = cold_ms(lambda: flash_attention_cuda(q, k, v, **mode), 10, flush)
     del flush
-    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **mode), 2, warmup=1)
+    # one timed call where the plain version's scores pass 2^33 elements
+    # (2.2 s a call at qwen2's 32,768 tokens), else two after a warm-up
+    big = b * hq * s * sk > 2**33
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **mode), 1 if big else 2,
+                    warmup=0 if big else 1)
     library = cuda_ms(sdpa, 20, warmup=2)
     # the visible (query, key) pairs of this mask, two products of D each
     flops, nbytes = attention_work(b, hq, hkv, s, sk, d, causal, window, 2)
@@ -1556,8 +1608,9 @@ def prompt_batch(prompts):
 def model_cases():
     """The model checks, in float32, as ``{phase: [(name, cfg, init,
     prefill, prompt bytes, kernel launches wanted), ...]}``: yi-6b,
-    mamba2-1.3b, gemma3-12b (one window and one global layer) and
-    internvl2-76b at full width cut to ``MODEL_LAYERS`` layers.  The
+    mamba2-1.3b, gemma3-12b (one window and one global layer),
+    internvl2-76b, qwen2-72b and qwen1.5-110b at full width cut to
+    ``MODEL_LAYERS`` layers.  The
     routed families (MoE, hybrid) have their own check
     (:func:`moe_model_check`)."""
     import dataclasses
@@ -1586,6 +1639,11 @@ def model_cases():
             ("mamba2-1.3b full width, 2 layers", cut("mamba2-1.3b"), init_ssm,
              ssm_prefill, SSM_MODEL_LENGTHS, {"ssd_scan": MODEL_LAYERS}),
         ],
+        "qkv_bias": [
+            (f"{arch} full width, 2 layers, biases drawn from N(0, 1)",
+             cut(arch), init_lm, lm_prefill, (255, 97), {"flash_attention": MODEL_LAYERS})
+            for arch in (QWEN2, QWEN15)
+        ],
     }
 
 
@@ -1599,12 +1657,20 @@ def model_phase(work: Path, seed: int, cases, wrappers) -> None:
     CPU).  On the dense and VLM families every layer's K/V cache on the
     card must match the CPU's within the same tolerances too: on a window
     layer that the long prompt passes, the ring of its last ``window``
-    positions."""
+    positions.  On a config with QKV biases the biases are drawn after the
+    init (:func:`draw_qkv_biases`), and then, as a
+    negative control, layer 0's ``bv`` is zeroed on the card and its
+    logits read again: they must fall outside the tolerance (printed: by
+    how much)."""
+    from repro_torch.models.common import draw_qkv_biases
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for name, cfg, init, prefill, lengths, want_launches in cases:
         t0 = time.perf_counter()
-        card_model = init(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        card_model = init(cfg, gen, "cuda")
+        biased = draw_qkv_biases(card_model, gen)
         cpu_model = cpu_copy(card_model)
         toks, lens = prompt_batch(corpus_prompts(work, lengths))
         extra = {}
@@ -1647,6 +1713,18 @@ def model_phase(work: Path, seed: int, cases, wrappers) -> None:
             if n != want_launches.get(kernel, 0):
                 fail(f"model check {name}: {n} {kernel} launches, want "
                      f"{want_launches.get(kernel, 0)}")
+        if biased:
+            with torch.no_grad():
+                card_model.layers[0].attn.bv.zero_()
+            lost = prefill(card_model, cfg, toks.cuda(), lengths=lens.cuda())[0].cpu()
+            excess = float(((lost - want).abs()
+                            / (MODEL_ATOL + MODEL_RTOL * want.abs())).max())
+            print(f"model check {name}: biases of {biased} layers drawn from "
+                  f"N(0, 1); negative control, layer 0's bv zeroed on the "
+                  f"card: logits max_abs_err={float((lost - want).abs().max()):.6g}, "
+                  f"{excess:.4g}x the tolerance", flush=True)
+            if torch.allclose(lost, want, atol=MODEL_ATOL, rtol=MODEL_RTOL):
+                fail(f"model check {name}: the logits pass with layer 0's bv zeroed")
         del cpu_model, card_model, cache, got, want_cache, extra
         torch.cuda.empty_cache()
 
@@ -1677,6 +1755,25 @@ def prefill_launches(cfg) -> dict:
     return {"flash_attention": cfg.n_layers}
 
 
+def dense_weight_figures(cfg) -> dict:
+    """A dense config's parameters, from its fields: a layer's (q, k, v and
+    output projections, the QKV biases where it has them, the SwiGLU's
+    three matrices; its two norms apart), the embedding's and the untied
+    head's, and the served model's bytes: matrices and biases in the
+    compute dtype, the norms in float32, as ``init_lm`` stores them."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    layer = 2 * d * q + 2 * d * kv + 3 * d * cfg.d_ff
+    if cfg.qkv_bias:
+        layer += q + 2 * kv
+    embed = cfg.vocab_size * d
+    heads = 1 if cfg.tie_embeddings else 2
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    nbytes = (item * (cfg.n_layers * layer + heads * embed)
+              + 4 * d * (2 * cfg.n_layers + 1))
+    return {"layer": layer, "embed": embed, "heads": heads, "bytes": nbytes}
+
+
 def lm_serving_phase(work: Path, seed: int, arch: str, card: str,
                      max_len: int = SERVE_MAX_LEN, lengths=SERVE_LENGTHS,
                      cut: Optional[dict] = None):
@@ -1691,7 +1788,10 @@ def lm_serving_phase(work: Path, seed: int, arch: str, card: str,
     once a step: MoE decode sizes each expert's slots to the batch, so it
     reads every expert).  Returns each kernel's launches over the phase,
     the served engine (for callers that go on serving its model) and the
-    runs (tokens, prefill and decode timings)."""
+    runs (tokens, prefill and decode timings).  On a config with QKV
+    biases (the launcher draws them after the init) the weights' bytes
+    must equal :func:`dense_weight_figures`' (printed with its
+    figures)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.moe import MoE, monitor
@@ -1722,6 +1822,17 @@ def lm_serving_phase(work: Path, seed: int, arch: str, card: str,
         if not row or any(not 0 <= t < vocab for t in row):
             fail(f"{arch} serving: bad token row {row[:8]}")
     engine = out.pop("engine")
+    if engine.cfg.qkv_bias:
+        fig = dense_weight_figures(engine.cfg)
+        print(f"lm_serving[{arch}]: from the config, {fig['layer']} parameters a "
+              f"layer (QKV biases drawn from N(0, 1)), embedding and untied "
+              f"head {fig['embed']} each: {fig['bytes']} bytes at "
+              f"{engine.cfg.n_layers} layers in {engine.cfg.dtype}, the weight-read "
+              f"bound of a decode step {fig['bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms "
+              f"at 3.35 TB/s", flush=True)
+        if fig["bytes"] != out["weight_bytes"]:
+            fail(f"{arch} serving: {out['weight_bytes']} weight bytes, the config "
+                 f"gives {fig['bytes']}")
     per_prefill = prefill_launches(engine.cfg)
     for name, n in launches.items():
         want = 2 * per_prefill.get(name, 0)
@@ -1780,6 +1891,101 @@ def lm_serving_phase(work: Path, seed: int, arch: str, card: str,
     del out
     torch.cuda.empty_cache()
     return launches, engine, runs
+
+
+def long_prompt(work: Path, nbytes: int) -> str:
+    """The funnel corpus's records joined, from the first one's id line, and
+    cut to ``nbytes`` bytes (records are ASCII)."""
+    from repro_torch.core.records import iter_records
+
+    parts, have = [], 0
+    for path in sorted((work / "corpus").glob("compound_*.sdf")):
+        for _, text in iter_records(path):
+            parts.append(text)
+            have += len(text)
+            if have > nbytes + 1024:
+                break
+        if have > nbytes + 1024:
+            break
+    stream = "".join(parts)
+    out = stream[stream.index("InChI="):][:nbytes]
+    if len(out.encode()) != nbytes:
+        fail(f"funnel corpus too short for a {nbytes}-byte prompt")
+    return out
+
+
+def long_prompt_phase(work: Path, engine, card: str) -> int:
+    """qwen2-72b's prefill_32k / decode_32k length on ``engine``'s served
+    model (its 16 layers, bf16, nonzero QKV biases): one prompt of
+    ``LONG_PROMPT_TOKENS`` tokens (BOS and the corpus joined to 32,767
+    bytes) into a ``LONG_MAX_LEN`` cache, ``SERVE_NEW_TOKENS`` new tokens,
+    through a static ``Engine`` that decodes by graph replay, served twice:
+    the same tokens, one tensor-core ``flash_attention`` launch a layer a
+    prefill and none in decode, prefill ms beside its compute bound, and the
+    two runs' own peak; then the eager/graph turns and the eager engine's
+    profile (:func:`static_alternation`) with the graph ITL beside the
+    step's bound (every weight and the cache's ``LONG_MAX_LEN`` slots read
+    once).  Returns the phase's
+    ``flash_attention`` launches."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    t0 = time.perf_counter()
+    cfg, label = engine.cfg, f"{engine.cfg.name} {LONG_PROMPT_TOKENS} tokens"
+    fa = model_wrappers()["flash_attention"]
+    prompt = long_prompt(work, LONG_PROMPT_TOKENS - 1)
+    eng = Engine(cfg, engine.model, ServeConfig(max_new_tokens=SERVE_NEW_TOKENS,
+                                                max_len=LONG_MAX_LEN), device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches([fa])
+    runs = [eng.generate([prompt])[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches, tc = fa.launches, fa.tc_launches
+    if runs[0].prompt_len != LONG_PROMPT_TOKENS:
+        fail(f"{label}: the prompt is {runs[0].prompt_len} tokens")
+    if runs[0].token_ids != runs[1].token_ids:
+        fail(f"{label}: the two generate calls gave different tokens")
+    if not runs[0].token_ids or any(not 0 <= t < cfg.vocab_size for t in runs[0].token_ids):
+        fail(f"{label}: bad token row {runs[0].token_ids[:8]}")
+    if launches != 2 * cfg.n_layers or tc != launches:
+        fail(f"{label}: {launches} flash_attention launches ({tc} on the tensor-core "
+             f"route) in 2 generate calls, want {2 * cfg.n_layers}, all tensor-core")
+    fig = dense_weight_figures(cfg)
+    d, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    attn_flops, _ = attention_work(1, hq, hkv, LONG_PROMPT_TOKENS, LONG_PROMPT_TOKENS,
+                                   d, True, None, 2)
+    flops = (2 * LONG_PROMPT_TOKENS * fig["layer"] * cfg.n_layers
+             + cfg.n_layers * attn_flops + 2 * fig["embed"])
+    prefill_bound = flops / BF16_FLOPS_PER_S * 1e3
+    for i, r in enumerate(runs):
+        print(f"lm_long[{label}] run {i}: prefill_ms={r.prefill_s * 1e3:.3f} (compute "
+              f"bound {prefill_bound:.3f} ms: {flops:.4e} flops at 989 TFLOP/s, "
+              f"{prefill_bound / (r.prefill_s * 1e3):.4f} of it); decode {r.steps} "
+              f"steps in {r.decode_s * 1e3:.3f} ms = {r.tokens_per_s:.1f} tokens/s; "
+              f"card: {card}", flush=True)
+    print(f"lm_long[{label}]: {cfg.n_layers} layers bf16, max_len {LONG_MAX_LEN}, "
+          f"cache_bytes={eng.kv_cache_bytes}; own peak of the 2 runs {peak} (allocated "
+          f"at their start: {base}); flash_attention {launches} launches, {tc} on the "
+          f"tensor-core route ({cfg.n_layers} a prefill, none in decode); tokens "
+          f"identical over 2 runs; {time.perf_counter() - t0:.1f} s", flush=True)
+    before = fa.launches
+    rates = static_alternation(label, eng, [prompt], card)
+    alt = fa.launches - before
+    if alt != 5 * cfg.n_layers:
+        fail(f"{label} alternation: {alt} flash_attention launches in 5 generate calls "
+             f"(4 turns, 1 profiled), want {5 * cfg.n_layers}")
+    step_bytes = fig["bytes"] + eng.kv_cache_bytes
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    itl = rates["itl"]["graph"]
+    print(f"decode[{label}]: graph ITL p50 {', '.join(f'{x:.3f}' for x in itl)} ms "
+          f"against the step's read bound {bound:.3f} ms (weights {fig['bytes']} + "
+          f"cache {eng.kv_cache_bytes} bytes / 3.35 TB/s): {bound / float(np.mean(itl)):.4f} "
+          f"of it; {time.perf_counter() - t0:.1f} s; card: {card}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return launches + alt
 
 
 def encdec_cache_check(engine, prompts, wrapper, max_len: int, per_prefill: int) -> str:
@@ -2599,8 +2805,10 @@ def compare_tokens(name, a, b, model, cfg, prompts) -> int:
     return ties
 
 
-def continuous_parity_phase(work: Path, seed: int, card: str) -> None:
-    """float32, yi-6b at full width cut to ``MODEL_LAYERS`` layers, one set of
+def continuous_parity_phase(work: Path, seed: int, card: str,
+                            arch: str = "yi-6b") -> None:
+    """float32, ``arch`` at full width cut to ``MODEL_LAYERS`` layers (its
+    QKV biases, where it has them, drawn after the init), one set of
     weights on the card: ContinuousEngine == the static Engine, prefix on
     == off (under the near-tie rule), and suffix-prefill logits within
     ``SUFFIX_ATOL`` of full prefill's."""
@@ -2609,6 +2817,7 @@ def continuous_parity_phase(work: Path, seed: int, card: str) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.launch.serve import paged_spec
+    from repro_torch.models.common import draw_qkv_biases
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.serve.kvcache import BlockManager, PrefixIndex
@@ -2617,10 +2826,12 @@ def continuous_parity_phase(work: Path, seed: int, card: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("yi-6b"), n_layers=MODEL_LAYERS,
+    cfg = dataclasses.replace(get_config(arch), n_layers=MODEL_LAYERS,
                               dtype="float32")
     api = build_model(cfg)
-    model = api.init(torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = api.init(gen, "cuda")
+    draw_qkv_biases(model, gen)
     prompts = corpus_prompts(work, SERVE_LENGTHS)
     texts = prompts + reuse_prompts(work, prompts)[:PARITY_REUSE]
     spec = paged_spec(CONT_MAX_LEN, CONT_BLOCK, CONT_SLOTS, prefix_cache=True)
@@ -2631,14 +2842,15 @@ def continuous_parity_phase(work: Path, seed: int, card: str) -> None:
         eng = ContinuousEngine(cfg, model, spec, scfg, prefix_cache=prefix,
                                device="cuda")
         rows[prefix] = [r.token_ids for r in eng.generate(texts)]
-        hits = eng.stats.prefix_hits
+        if prefix:
+            hits = eng.stats.prefix_hits
         drain_and_check(eng, f"parity[prefix {'on' if prefix else 'off'}]")
         if prefix and hits < PARITY_REUSE:
             fail(f"parity: {hits} prefix hits, want at least {PARITY_REUSE}")
-    ties = compare_tokens("parity continuous vs static", rows[True], static,
+    ties = compare_tokens(f"parity[{arch}] continuous vs static", rows[True], static,
                           model, cfg, texts)
-    ties += compare_tokens("parity prefix on vs off", rows[True], rows[False],
-                           model, cfg, texts)
+    ties += compare_tokens(f"parity[{arch}] prefix on vs off", rows[True],
+                           rows[False], model, cfg, texts)
 
     # suffix prefill against full prefill, through the paged functions
     tok = ByteTokenizer()
@@ -2686,10 +2898,12 @@ def continuous_parity_phase(work: Path, seed: int, card: str) -> None:
         if not err <= SUFFIX_ATOL:
             fail(f"parity: suffix prefill logits {err} from full prefill's "
                  f"(tolerance {SUFFIX_ATOL})")
-    print(f"parity (yi-6b full width, {MODEL_LAYERS} layers, float32, allow_tf32="
-          f"False, {len(texts)} prompts, {PARITY_NEW_TOKENS} new tokens): "
+    bias = ", QKV biases drawn from N(0, 1)" if cfg.qkv_bias else ""
+    print(f"parity ({arch} full width, {MODEL_LAYERS} layers, float32, allow_tf32="
+          f"False{bias}, {len(texts)} prompts, {PARITY_NEW_TOKENS} new tokens): "
           f"continuous == static and prefix on == prefix off with {ties} "
-          f"near-ties; suffix vs full prefill logits worst {worst:.6g} (tolerance "
+          f"near-ties, {hits} prefix hits; suffix vs full "
+          f"prefill logits worst {worst:.6g} (tolerance "
           f"{SUFFIX_ATOL}); {time.perf_counter() - t0:.1f} s; card: {card}", flush=True)
     del model, pool
     torch.cuda.empty_cache()
@@ -3064,8 +3278,13 @@ FA_TRAIN_GEMMA = (FaCase("gemma3-12b train", 4, 16, 8, 2048, 2048, 256, window=1
 FA_TRAIN_WHISPER = FaCase("whisper-small encoder train", 4, 12, 12, 1500, 1500, 64,
                           causal=False)
 SSD_TRAIN = ("train", 256, 8, 64, 128)
-TRAIN_PARITY = ("yi-6b", "moonshot-v1-16b-a3b", "mamba2-1.3b")
+TRAIN_PARITY = ("yi-6b", "moonshot-v1-16b-a3b", "mamba2-1.3b", QWEN2)
 TRAIN_PARITY_LENGTHS = (255, 97)  # prompt bytes of the parity batch
+# qwen2-72b's batch: 2 x 128 tokens (two of the float32 attention's 64-key
+# tiles in row 0, a ragged row 1).  Its CPU side (4.25e9 parameters, a
+# 152,064-word head over every token) costs ~0.15 s a token; at 2 x 256 the
+# whole run would come within ~50 s of its limit on a slow host
+TRAIN_PARITY_SHORT = {QWEN2: (127, 47)}
 CRASH_ARCH = "jamba-1.5-large-398b"  # smoke: both kernels and the MoE on one path
 TRAIN_SEQ, TRAIN_BATCH = 2048, 4
 # the full-size runs: (arch, layers or None for the full depth, steps,
@@ -3276,10 +3495,11 @@ def _loss_and_grads(api, model, batch):
 
 
 def train_parity_phase(work: Path, seed: int, wrappers) -> None:
-    """yi-6b, moonshot-v1-16b-a3b and mamba2-1.3b at full width cut to
-    ``MODEL_LAYERS`` layers, float32 with TF32 off, one train state drawn on
-    the card and copied to the CPU, one batch of two corpus prompts: the
-    loss and every parameter's gradient on the card against the CPU's
+    """yi-6b, moonshot-v1-16b-a3b, mamba2-1.3b and qwen2-72b (its QKV biases
+    drawn after the init; their gradients' errors printed by name) at full
+    width cut to ``MODEL_LAYERS`` layers, float32 with TF32 off, one train
+    state drawn on the card and copied to the CPU, one batch of two corpus
+    prompts (``TRAIN_PARITY_SHORT``'s where it names the arch): the loss and every parameter's gradient on the card against the CPU's
     within ``MODEL_ATOL``/``MODEL_RTOL``, and every parameter with a
     non-zero CPU gradient has one on the card (a kernel output cut off from
     autograd would leave zeros upstream).  MoE routing is compared first:
@@ -3290,20 +3510,23 @@ def train_parity_phase(work: Path, seed: int, wrappers) -> None:
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models.common import draw_qkv_biases
     from repro_torch.models.moe import MoE, monitor
     from repro_torch.models.registry import build_model
     from repro_torch.train.loop import make_train_state
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    toks, lens = prompt_batch(corpus_prompts(work, TRAIN_PARITY_LENGTHS))
-    mask = (torch.arange(toks.shape[1])[None, :] < lens[:, None]).float()
     for arch in TRAIN_PARITY:
         t0 = time.perf_counter()
+        toks, lens = prompt_batch(corpus_prompts(
+            work, TRAIN_PARITY_SHORT.get(arch, TRAIN_PARITY_LENGTHS)))
+        mask = (torch.arange(toks.shape[1])[None, :] < lens[:, None]).float()
         cfg = dataclasses.replace(get_config(arch), n_layers=MODEL_LAYERS, dtype="float32")
         api = build_model(cfg)
         g = torch.Generator(device="cuda")
         g.manual_seed(seed)
         card_model = make_train_state(api, g, device="cuda")["model"]
+        draw_qkv_biases(card_model, g)
         cpu_model = cpu_copy(card_model)
         moe = any(isinstance(m, MoE) for m in card_model.modules())
         batch = {"tokens": toks, "loss_mask": mask}
@@ -3323,12 +3546,17 @@ def train_parity_phase(work: Path, seed: int, wrappers) -> None:
                 flips += len(set(a[t].tolist()) - set(b[t].tolist()))
                 gaps.append(float(c_cpu.margin[t]))
         worst, worst_rel, dead = 0.0, 0.0, []
-        bad = []
+        bad, bias_err = [], {}
         for n, wg in want_g.items():
-            gg = got_g[n].cpu()
+            # compared on the card: the host's passes over a 4.25e9-parameter
+            # model's gradients took longer than its backward
+            gg, wg = got_g[n], wg.cuda()
             if not torch.isfinite(gg).all():
                 fail(f"train parity {arch}: gradient of {n} not finite on the card")
-            worst = max(worst, float((gg - wg).abs().max()))
+            err = float((gg - wg).abs().max())
+            worst = max(worst, err)
+            if n.rsplit(".", 1)[-1] in ("bq", "bk", "bv"):
+                bias_err[n] = f"{err:.3g} (|grad| max {float(wg.abs().max()):.3g})"
             worst_rel = max(worst_rel, float((gg - wg).norm() / max(float(wg.norm()), 1e-30)))
             if bool((wg != 0).any()) and not bool((gg != 0).any()):
                 dead.append(n)
@@ -3337,6 +3565,8 @@ def train_parity_phase(work: Path, seed: int, wrappers) -> None:
         routing = ("" if not moe else f"; router top-{cfg.experts_per_token} " + (
             "identical" if not flips else f"{flips} assignments flipped (smallest gap "
             f"{min(gaps):.3g})"))
+        biases = (f"; QKV bias gradients max_abs_err {json.dumps(bias_err)}"
+                  if bias_err else "")
         want_l = {"flash_attention": 2 * MODEL_LAYERS if cfg.family != "ssm" else 0,
                   "ssd_scan": 3 * MODEL_LAYERS if cfg.family == "ssm" else 0}
         print(f"train parity: {arch} full width, {MODEL_LAYERS} layers, float32, "
@@ -3344,7 +3574,7 @@ def train_parity_phase(work: Path, seed: int, wrappers) -> None:
               f"{want:.7g}; {len(want_g)} parameter gradients: max_abs_err={worst:.6g}, "
               f"worst relative norm error {worst_rel:.3g} (atol {MODEL_ATOL}, rtol "
               f"{MODEL_RTOL}), zero on the card where non-zero on the CPU: {len(dead)}"
-              f"{routing}; launches {json.dumps(launches)}; "
+              f"{routing}{biases}; launches {json.dumps(launches)}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for kernel, want_n in want_l.items():
             if launches[kernel] != want_n:
@@ -3905,7 +4135,8 @@ def main() -> None:
     tani = tanimoto_phase(args.seed)
     attn = attention_case(FA_YI, args.seed)
     for case in (FA_GEMMA, FA_GEMMA_SERVED, FA_GEMMA_SERVED_GLOBAL, FA_VLM_SERVED,
-                 FA_QWEN3_SERVED, FA_HYBRID_SERVED, FA_MOONSHOT, *FA_SUFFIX, *FA_WHISPER):
+                 FA_QWEN3_SERVED, FA_HYBRID_SERVED, FA_QWEN2_32K, FA_MOONSHOT, *FA_SUFFIX,
+                 *FA_WHISPER):
         attention_case(case, args.seed)
     ssd = ssd_scan_case(SSD_PREFILL, args.seed)
     ssd_scan_case(SSD_LONG, args.seed)
@@ -4011,6 +4242,19 @@ def main() -> None:
         fa_moe = moe_serving_phase(Path(work), args.seed, card)
         print(f"MoE phases: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
+        model_phase(Path(work), args.seed, checks["qkv_bias"], lm_wrappers)
+        continuous_parity_phase(Path(work), args.seed, card, arch=QWEN2)
+        fa_qwen = {}
+        for arch in (QWEN2, QWEN15):
+            served, engine, _ = lm_serving_phase(
+                Path(work), args.seed, arch, card, cut=dict(n_layers=QWEN_SERVE_LAYERS))
+            fa_qwen[arch] = served["flash_attention"]
+            if arch == QWEN2:
+                fa_long = long_prompt_phase(Path(work), engine, card)
+            del engine
+            torch.cuda.empty_cache()
+        print(f"qwen2 and qwen1.5 phases: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
         train_wrappers = {"flash_attention": flash_attention_cuda,
                           "flash_attention_bwd": flash_attention_bwd_cuda,
                           "ssd_scan": ssd_scan_cuda, "hash_mix": hash_mix_cuda,
@@ -4042,6 +4286,7 @@ def main() -> None:
     launches["flash_attention"] = (fa_static + fa_cont + fa_sampled + fa_moe + fa_whisper
                                    + fa_gemma + fa_vlm + fa_vlm_cont
                                    + hybrid_launches["flash_attention"] + fa_qwen3
+                                   + fa_qwen[QWEN2] + fa_long + fa_qwen[QWEN15]
                                    + train_total["flash_attention"] + fa_mesh + fa_ep)
     launches["ssd_scan"] += (hybrid_launches["ssd_scan"] + train_total["ssd_scan"]
                              + ssd_mesh)
@@ -4052,7 +4297,9 @@ def main() -> None:
           f"moonshot static and continuous {fa_moe} + whisper-small static "
           f"{fa_whisper} + gemma3-12b static {fa_gemma} + internvl2-76b static "
           f"{fa_vlm} + internvl2-76b continuous {fa_vlm_cont} + jamba static "
-          f"{hybrid_launches['flash_attention']} + qwen3-moe static {fa_qwen3} + training "
+          f"{hybrid_launches['flash_attention']} + qwen3-moe static {fa_qwen3} + "
+          f"qwen2-72b static {fa_qwen[QWEN2]} and its {LONG_PROMPT_TOKENS}-token "
+          f"prompt {fa_long} + qwen1.5-110b static {fa_qwen[QWEN15]} + training "
           f"{train_total['flash_attention']} (gemma3-12b's "
           f"{gemma_train['flash_attention']}) + the mesh phase's yi-6b serving {fa_mesh} "
           f"and moonshot expert-parallel prefill {fa_ep}; ssd_scan mamba2 serving "

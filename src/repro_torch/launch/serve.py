@@ -7,11 +7,14 @@
 
 Builds the requested architecture (its reduced smoke config unless
 ``--full-config``) with random weights drawn on ``--device`` from
-``--seed``, and serves the prompts through the static :class:`Engine`
-``--repeats`` times, reporting prefill and decode timings.  ``--device``
-defaults to ``cuda``; the CPU is used only when asked for.  The VLM and
-encoder-decoder families have stub frontends (as in the reference): the
-engine feeds zero patch embeddings or zero audio frames.
+``--seed`` (the QKV biases of a config that has them drawn from N(0, 1)
+after the init, whose zeros would leave the bias add unexercised; a
+trained checkpoint's biases are nonzero), and serves the prompts through
+the static :class:`Engine` ``--repeats`` times, reporting prefill and
+decode timings.  ``--device`` defaults to ``cuda``; the CPU is used only
+when asked for.  The VLM and encoder-decoder families have stub frontends
+(as in the reference): the engine feeds zero patch embeddings or zero
+audio frames.
 
 ``--continuous`` serves through the paged-KV continuous-batching engine
 instead (:mod:`repro_torch.serve.scheduler`): the prompts are submitted as
@@ -46,6 +49,7 @@ import torch
 
 from ..configs import ARCH_NAMES, ModelConfig, get_config
 from ..device import resolve_device
+from ..models.common import draw_qkv_biases
 from ..models.registry import build_model
 from ..models.specs import param_specs
 from ..serve.engine import Engine, ServeConfig
@@ -112,6 +116,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> Dict[str
     gen.manual_seed(args.seed)
     t0 = time.perf_counter()
     model = build_model(cfg).init(gen, dev)
+    draw_qkv_biases(model, gen)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0

@@ -80,6 +80,7 @@ __all__ = [
     "compute_dtype",
     "decode_attention_chunked",
     "dense_init",
+    "draw_qkv_biases",
     "embed_apply",
     "embed_init",
     "last_token_logits",
@@ -255,6 +256,29 @@ def attention_init(cfg: ModelConfig, generator: torch.Generator) -> Attention:
         biases = [torch.zeros((n,), dtype=cdt, device=generator.device)
                   for n in (h * dh, hkv * dh, hkv * dh)]
     return Attention(*ws, *biases)
+
+
+def draw_qkv_biases(model: nn.Module, generator: torch.Generator) -> int:
+    """Fill every attention's ``bq``, ``bk`` and ``bv`` (configs with
+    ``qkv_bias``) in place with N(0, 1) draws from ``generator``, module by
+    module, each vector drawn in float32 on the generator's device and cast
+    to its parameter's dtype and device.  The inits keep the reference's
+    zeros; random weights drawn for a check or a served run call this so
+    that the bias add is exercised, as a trained checkpoint's nonzero
+    biases exercise it.  A unit bias is of the size of its projection's
+    output (a normalised input through ``dense_init``'s
+    ``1 / sqrt(fan_in)``).  Returns how many attention modules it filled
+    (none on a config without biases)."""
+    n = 0
+    with torch.no_grad():
+        for m in model.modules():
+            if not isinstance(m, Attention) or m.bq is None:
+                continue
+            for b in (m.bq, m.bk, m.bv):
+                b.copy_(torch.randn(b.shape, generator=generator,
+                                    device=generator.device, dtype=torch.float32))
+            n += 1
+    return n
 
 
 def pad_dim(t: torch.Tensor, dim: int, before: int, after: int) -> torch.Tensor:

@@ -7,7 +7,9 @@ checkpoint names and loaded into the port by the parameter bridge
 configs are the reduced ``get_config(...).smoke()`` ones in float32, where
 both packages do the same float32 arithmetic in another order, so hidden
 states, logits and caches agree within ``atol = rtol = 1e-4``, and greedy
-tokens are identical.  bfloat16 rounds at other places in the two
+tokens are identical.  The QKV-bias configs (qwen2-72b, qwen1.5-110b) get
+seeded nonzero biases in place of the init's zeros (``torch_qkv_bias``),
+so that the bias add is held by value.  bfloat16 rounds at other places in the two
 frameworks, so the bfloat16 case compares logits at ``BF16_ATOL``.
 """
 
@@ -44,10 +46,11 @@ from repro_torch.models import transformer as T
 from repro_torch.models.registry import build_model
 from repro_torch.models.weights import params_from_reference, params_to_reference
 from repro_torch.serve.engine import Engine, ServeConfig
+from torch_qkv_bias import draw_biases
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_ATOL = 5e-2  # bfloat16 logits of the smoke config (|logit| < ~1)
-PARITY_ARCHS = ["yi-6b", "qwen2-72b", "gemma3-12b", "internvl2-76b"]
+PARITY_ARCHS = ["yi-6b", "qwen2-72b", "qwen1.5-110b", "gemma3-12b", "internvl2-76b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,10 +75,12 @@ _WEIGHTS = {}
 
 
 def _weights(arch, dtype="float32"):
-    """(reference cfg, port cfg, reference params, port model), cached."""
+    """(reference cfg, port cfg, reference params, port model), cached;
+    nonzero QKV biases where the config has them."""
     if (arch, dtype) not in _WEIGHTS:
         r_cfg, t_cfg = _cfgs(arch, dtype)
         params, _ = R.init_lm(r_cfg, jax.random.PRNGKey(7))
+        params = draw_biases(params, r_cfg, 7)
         named = {n: np.asarray(a) for n, a in _flatten_with_names(params)}
         model = params_from_reference(t_cfg, named, device="cpu")
         _WEIGHTS[arch, dtype] = (r_cfg, t_cfg, params, model)

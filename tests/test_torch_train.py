@@ -8,7 +8,8 @@ gradient compressors, AdamW, ``chunked_xent`` and every family's loss.
   leaf; the port takes the same leaves through ``reference_layout``).
 * ``adamw_update``: within 1e-6 of the reference's for one step, with
   ``m`` in float32 and in bfloat16, clipped and not.
-* ``chunked_xent``, ``lm_loss`` (dense, MoE with its aux loss, VLM with
+* ``chunked_xent``, ``lm_loss`` (dense, dense with seeded nonzero QKV
+  biases on the qwen configs, MoE with its aux loss, VLM with
   ``patch_embeds``), ``ssm_loss`` and ``hybrid_loss``: within 1e-5 of the
   reference's on the f32 smoke configs, weights carried across by the
   parameter bridge, and gradients reaching every parameter the
@@ -35,6 +36,7 @@ from repro_torch.models.common import chunked_xent
 from repro_torch.models.registry import build_model
 from repro_torch.models.weights import named_to_reference, params_from_reference
 from repro_torch.train import optimizer as PO
+from torch_qkv_bias import BIASES, draw_biases
 
 
 def _np(t):
@@ -183,16 +185,18 @@ def test_cosine_schedule_matches_reference(step):
 # ---------------------------------------------------------------------------
 
 LOSS_ARCHS = ["yi-6b", "gemma3-12b", "moonshot-v1-16b-a3b", "internvl2-76b",
-              "mamba2-1.3b", "jamba-1.5-large-398b"]
+              "mamba2-1.3b", "jamba-1.5-large-398b", "qwen2-72b", "qwen1.5-110b"]
 
 
 def _pair(arch, seed=0):
     """(reference api, its params, the port's api, a training module
-    holding the same float32 values)."""
+    holding the same float32 values); nonzero QKV biases where the config
+    has them."""
     rcfg = dataclasses.replace(r_get_config(arch).smoke(), dtype="float32")
     cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
     rapi = r_build_model(rcfg)
     params, _ = rapi.init(jax.random.PRNGKey(seed))
+    params = draw_biases(params, rcfg, seed)
     named = {n: np.asarray(a) for n, a in _flatten_with_names(params)}
     model = params_from_reference(cfg, named, "cpu")
     for p in model.parameters():
@@ -235,6 +239,8 @@ def test_loss_and_grads_match_reference(arch):
         np.testing.assert_allclose(got[n].numpy(), w, atol=1e-5 * max(1.0, scale),
                                    rtol=1e-4, err_msg=n)
         assert (np.abs(w).max() == 0) == (float(got[n].abs().max()) == 0), n
+    if api.cfg.qkv_bias:
+        assert all(np.abs(want[f"blocks/attn/{n}"]).max() > 0 for n in BIASES)
 
 
 @pytest.mark.parametrize("s,chunk", [(70, 512), (70, 16), (64, 32), (5, 2)])
