@@ -43,6 +43,7 @@ from ..core.reader import (
 )
 from ..core.records import RecordStore, read_record_at
 from ..device import DeviceLike, resolve_device
+from ..runtime.trace import span
 from .sampler import GlobalSampler
 from .tokenizer import ByteTokenizer, render_example
 
@@ -249,19 +250,21 @@ class IndexedDataset:
     ) -> Dict[str, np.ndarray]:
         idxs = sampler.example_ids(step, dp_rank, n_dp)
         keys = [self.keys[i % len(self.keys)] for i in idxs]
-        records = self.fetch_many(keys)
-        toks, masks = [], []
-        for k in keys:
-            text = render_example(records[k]) if k in records else k
-            if text is None:
-                text = k
-            t, m = self.tok.pad_to(self.tok.encode(text), self.seq_len)
-            toks.append(t)
-            masks.append(m)
-        return {
-            "tokens": np.stack(toks),
-            "loss_mask": np.stack(masks),
-        }
+        with span("IndexedDataset.fetch"):
+            records = self.fetch_many(keys)
+        with span("IndexedDataset.tokenize"):
+            toks, masks = [], []
+            for k in keys:
+                text = render_example(records[k]) if k in records else k
+                if text is None:
+                    text = k
+                t, m = self.tok.pad_to(self.tok.encode(text), self.seq_len)
+                toks.append(t)
+                masks.append(m)
+            return {
+                "tokens": np.stack(toks),
+                "loss_mask": np.stack(masks),
+            }
 
 
 class BatchLoader:

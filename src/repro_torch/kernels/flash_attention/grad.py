@@ -42,8 +42,8 @@ import math
 from typing import Optional
 
 import torch
-import torch.profiler
 
+from ...runtime.trace import span
 from .. import work
 from .backward import backward_route, flash_attention_bwd_cuda
 from .kernel import flash_attention_cuda
@@ -211,7 +211,7 @@ class FlashAttention(torch.autograd.Function):
             return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
                     None, None, None, None)
         # a named span, so that a profile can attribute the device time
-        with torch.profiler.record_function("flash_attention.backward"):
+        with span("flash_attention.backward"):
             if lse is not None:  # the forward took the tensor-core route
                 dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, d_out, lse, *ctx.mask)
             else:

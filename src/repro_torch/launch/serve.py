@@ -21,9 +21,11 @@ instead (:mod:`repro_torch.serve.scheduler`): the prompts are submitted as
 independent requests that admit into ``--max-slots`` decode lanes backed
 by ``--block-size`` KV blocks (the pool sized as the reference sizes it:
 ``max_slots · m`` blocks, ``m`` more of headroom for the prefix cache, and
-2), and the report adds the TTFT/inter-token SLO percentiles and the
-prefix-cache counters.  Prompts that share a block-aligned prefix share
-its KV through the prefix cache (``--no-prefix-cache`` turns sharing off;
+2), and the report adds the TTFT/inter-token SLO percentiles, the p50/p99
+of the requests' queue wait (``GenerationResult.queue_s``: submit to the
+start of the admission, the part of TTFT that admitting one request at a
+time adds) and the prefix-cache counters.  Prompts that share a
+block-aligned prefix share its KV through the prefix cache (``--no-prefix-cache`` turns sharing off;
 greedy tokens are the same either way).  Families without a paged
 decode step (sliding-window layers, SSM, hybrid, encoder-decoder) refuse
 ``--continuous``.  :func:`run` drives either mode in-process and returns a
@@ -45,6 +47,7 @@ import dataclasses
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..configs import ARCH_NAMES, ModelConfig, get_config
@@ -191,10 +194,12 @@ def _run_continuous(args, cfg, model, dev) -> Dict[str, object]:
           f"{spec.max_blocks_per_seq} blocks of {args.block_size}, pool "
           f"{spec.n_blocks} blocks)…")
     runs: List[Dict[str, object]] = []
+    queue_ms: List[float] = []
     for _ in range(args.repeats):
         t0 = time.perf_counter()
         res = eng.generate(args.prompts)
         wall = time.perf_counter() - t0
+        queue_ms += [r.queue_s * 1e3 for r in res]
         for i, r in enumerate(res):
             print(f"[{i}] prompt {r.prompt_len} tokens, prefill "
                   f"{r.prefill_s * 1e3:.1f} ms, {r.tokens_per_s:.1f} tok/s → "
@@ -204,9 +209,12 @@ def _run_continuous(args, cfg, model, dev) -> Dict[str, object]:
                      "tokens_per_s": n_tokens / wall if wall > 0 else 0.0,
                      "token_ids": [r.token_ids for r in res]})
     slo = eng.slo_ms()
+    slo["queue_p50_ms"] = float(np.percentile(queue_ms, 50))
+    slo["queue_p99_ms"] = float(np.percentile(queue_ms, 99))
     print(f"slo: ttft p50 {slo['ttft_p50_ms']:.1f} ms / p99 "
           f"{slo['ttft_p99_ms']:.1f} ms, itl p50 {slo['itl_p50_ms']:.2f} ms / "
-          f"p99 {slo['itl_p99_ms']:.2f} ms")
+          f"p99 {slo['itl_p99_ms']:.2f} ms, queue wait p50 "
+          f"{slo['queue_p50_ms']:.1f} ms / p99 {slo['queue_p99_ms']:.1f} ms")
     c = eng.counters()
     if "pfx_entries" in c:
         print(f"prefix cache: hit rate {c['prefix_hit_rate']:.2f} "

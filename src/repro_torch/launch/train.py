@@ -20,6 +20,9 @@ trainer spreads each global batch over "data".  ``--arch whisper-small``
 raises: the batches carry no audio frames (``Trainer``).  :func:`run` drives it
 in-process and returns a summary with the history and the trainer;
 :func:`build` wires the same trainer and dataset without running it.
+Every fifth step prints its loss, gradient norm, ``dt`` and, in brackets,
+``batch_s``: the host time of its batch (fetch, tokenize, upload), which
+the card waits out; where it nears ``dt``, the loader paces the run.
 """
 
 from __future__ import annotations
@@ -126,8 +129,8 @@ def main() -> None:
     def log(step, rec):
         if step % 5 == 0:
             print(f"step {step:5d} loss {rec['loss']:.4f} "
-                  f"gnorm {rec['grad_norm']:.2f} {rec['dt']*1e3:.0f} ms",
-                  flush=True)
+                  f"gnorm {rec['grad_norm']:.2f} {rec['dt']*1e3:.0f} ms "
+                  f"(batch {rec['batch_s']*1e3:.0f} ms)", flush=True)
 
     out = run(args, on_step=log)
     tr, hist, final = out["trainer"], out["history"], out["final_step"]

@@ -8,10 +8,20 @@ per-sequence positions until EOS or the token budget.  The decode loop
 keeps everything on the device: each step emits the current tokens into a
 device-side buffer, updates the EOS flags and runs the decode step; the
 host reads only the all-done flag every ``sync_every`` steps, and copies
-the token buffer back once at the end.  The two phases run inside
-``torch.profiler.record_function`` spans named ``Engine.prefill`` and
-``Engine.decode`` (free when no profiler is active), so a profile of
-``generate`` splits its device time between them.
+the token buffer back once at the end.
+
+Spans (:func:`repro_torch.runtime.trace.span`: a
+``torch.profiler.record_function`` while a profiler runs, a shared null
+context costing under 1 us otherwise), so that a profile of ``generate``
+splits its device time and its idle gaps between host phases:
+``Engine.inputs`` (tokenize, pad, upload), ``Engine.prefill``,
+``Engine.decode.start`` (the capture key's static buffers, and the
+prefill's cache copied into them), ``Engine.decode`` and inside it
+``Engine.decode.replay`` (each step's launch: the graph replay, the static
+step or the eager step) and ``Engine.decode.done_check`` (the all-done poll
+every ``sync_every`` steps), then ``Engine.readback`` (the one copy of the
+tokens to the host).  The static engine's ``GenerationResult`` leaves
+``queue_s`` at its default.
 
 Over a mesh (``Engine(..., mesh=, param_specs=)``) the engine serves a
 copy of the model whose parameters are DTensors laid out by their logical
@@ -88,6 +98,7 @@ from ..launch.sharding import (
 from ..models.moe import monitored
 from ..models.registry import build_model
 from ..models.specs import cache_specs
+from ..runtime.trace import span
 from .sampling import prng_key
 
 __all__ = ["Engine", "GenerationResult", "ServeConfig"]
@@ -114,6 +125,9 @@ class GenerationResult:
     steps: int
     prefill_s: float
     decode_s: float
+    # the continuous engine's record of the request: host seconds from
+    # ``submit`` to the start of its admission
+    queue_s: float = 0.0
 
     @property
     def tokens_per_s(self) -> float:
@@ -348,13 +362,14 @@ class Engine:
 
     @torch.no_grad()
     def generate(self, texts: List[str]) -> List[GenerationResult]:
-        batch, lens = self.inputs(texts)
+        with span("Engine.inputs"):
+            batch, lens = self.inputs(texts)
         b = len(texts)
         key = None if self.scfg.greedy else prng_key(self.scfg.seed, self.device)
 
         self._sync()
         t0 = time.perf_counter()
-        with torch.profiler.record_function("Engine.prefill"), use_mesh(self.mesh):
+        with span("Engine.prefill"), use_mesh(self.mesh):
             logits, cache = self.api.prefill(self.model, batch,
                                              max_len=self.scfg.max_len)
             cache = self._shard_cache(cache)
@@ -373,33 +388,39 @@ class Engine:
 
         st = None
         if self.decode != "eager" and not monitored(self.model):
-            st = self._static_for(cache, b, n_new)
-            st.start(cache, cur, pos, key)
+            with span("Engine.decode.start"):
+                st = self._static_for(cache, b, n_new)
+                st.start(cache, cur, pos, key)
             del cache
             out_buf, n_emit, done = st.out_buf, st.n_emit, st.done
 
         t1 = time.perf_counter()
         steps = 0
         sync_every = max(1, self.scfg.sync_every)
-        with torch.profiler.record_function("Engine.decode"):
+        with span("Engine.decode"):
             for step in range(n_new):
-                if step % sync_every == 0 and step and bool(whole(done).all()):
-                    break
-                if st is None:
-                    with use_mesh(self.mesh):
-                        cur, pos, cache = self._step(cur, pos, cache, out_buf,
-                                                     n_emit, done, step, key)
-                elif st.graph is not None:
-                    st.graph.replay()
-                    self.replays += 1
-                else:
-                    self._static_step(st)
+                if step % sync_every == 0 and step:
+                    with span("Engine.decode.done_check"):
+                        all_done = bool(whole(done).all())
+                    if all_done:
+                        break
+                with span("Engine.decode.replay"):
+                    if st is None:
+                        with use_mesh(self.mesh):
+                            cur, pos, cache = self._step(cur, pos, cache, out_buf,
+                                                         n_emit, done, step, key)
+                    elif st.graph is not None:
+                        st.graph.replay()
+                        self.replays += 1
+                    else:
+                        self._static_step(st)
                 steps += 1
             self._sync()
         decode_s = time.perf_counter() - t1
 
-        out_np = whole(out_buf).cpu().numpy()  # the one transfer of tokens
-        emitted = whole(n_emit).cpu().numpy()
+        with span("Engine.readback"):
+            out_np = whole(out_buf).cpu().numpy()  # the one transfer of tokens
+            emitted = whole(n_emit).cpu().numpy()
         outs = [out_np[i, : emitted[i]].tolist() for i in range(b)]
         return [
             GenerationResult(

@@ -60,10 +60,28 @@ the last ulp of a ``log`` (:mod:`repro_torch.serve.sampling`).
 
 Per-request SLO accounting records time to first token (submit → first
 token) and inter-token latency (consecutive decode steps) in bounded
-windows; ``slo_ms()`` reports p50/p99 of both.  Admission prefills run in
-``torch.profiler.record_function`` spans named ``ContinuousEngine.prefill``
-and decode steps in ``ContinuousEngine.decode`` (free when no profiler is
-active).
+windows; ``slo_ms()`` reports p50/p99 of both.  Each request's
+``GenerationResult`` also carries ``queue_s`` (host seconds from
+``submit`` to the start of the admission attempt that admitted it, its
+prefix probe included: under one-at-a-time admission, the wait that batched
+admission would cut).
+
+Spans (:func:`repro_torch.runtime.trace.span`: a
+``torch.profiler.record_function`` while a profiler runs, a shared null
+context costing under 1 us otherwise), all on the leader's thread:
+``ContinuousEngine.prefix_match`` (each prefix probe, before the
+admission's prefill span); ``ContinuousEngine.prefill`` (one admission)
+and inside it ``ContinuousEngine.prefill.model`` (the prompt tensors built
+and uploaded, and the ``prefill`` or ``prefill_suffix`` call),
+``ContinuousEngine.prefill.first_token`` (the first token's draw and its
+read back), ``ContinuousEngine.prefill.cache_write`` (the table row's
+upload and ``paged_prefill_write``) and ``ContinuousEngine.prefix_publish``
+(each ``PrefixIndex.publish``); ``ContinuousEngine.decode`` (one step) and
+inside it ``ContinuousEngine.decode.lanes_in`` (the lanes copied in),
+``ContinuousEngine.decode.replay`` (the graph replay, or the step op by
+op) and ``ContinuousEngine.decode.readback`` (the ``(max_slots,)`` next
+tokens read back); then ``ContinuousEngine.emit`` (the emit/evict loop,
+with the callbacks of the futures it resolves).
 """
 
 from __future__ import annotations
@@ -84,6 +102,7 @@ from ..data.tokenizer import ByteTokenizer
 from ..device import DeviceLike, resolve_device
 from ..kernels.sample.ops import sample
 from ..models.registry import build_model
+from ..runtime.trace import span
 from .engine import GenerationResult, ServeConfig
 from .kvcache import BlockManager, PagedCacheSpec, PrefixIndex, blocks_for
 
@@ -132,10 +151,11 @@ class _Seq:
 
     __slots__ = (
         "future", "prompt_len", "budget", "tokens", "t_submit",
-        "prefill_s", "t_first", "t_last", "fed",
+        "prefill_s", "t_first", "t_last", "fed", "queue_s",
     )
 
-    def __init__(self, future, prompt_len, budget, t_submit, prefill_s, now):
+    def __init__(self, future, prompt_len, budget, t_submit, prefill_s, now,
+                 queue_s):
         self.future: "Future[GenerationResult]" = future
         self.prompt_len = prompt_len
         self.budget = budget
@@ -145,6 +165,7 @@ class _Seq:
         self.t_first = now
         self.t_last = now
         self.fed = 0            # decode steps this sequence was fed into
+        self.queue_s = queue_s
 
 
 class _Request:
@@ -379,7 +400,8 @@ class ContinuousEngine:
         """Longest indexed block-aligned prefix → (blocks, n_tokens)."""
         if self._index is None:
             return [], 0
-        return self._index.match(prompt)
+        with span("ContinuousEngine.prefix_match"):
+            return self._index.match(prompt)
 
     def _admit(self) -> None:
         """Move queued requests into free slots, strictly FIFO.
@@ -396,6 +418,7 @@ class ContinuousEngine:
                     return
                 req = self._queue[0]
             total = self._offset + len(req.prompt) + req.budget - 1
+            t_admit = time.perf_counter()
             # leader-only state below (index, allocator): the lock above
             # only guards the queue — nobody else pops it
             adopt, start = self._probe(req.prompt)
@@ -439,8 +462,8 @@ class ContinuousEngine:
                     self.stats.cancelled += 1
                 continue
             try:
-                with torch.profiler.record_function("ContinuousEngine.prefill"):
-                    self._admit_one(req, total, adopt, start)
+                with span("ContinuousEngine.prefill"):
+                    self._admit_one(req, total, adopt, start, t_admit - req.t_submit)
             except BaseException as e:
                 # the request is off the queue and not yet active: fail it
                 # here, then let the loop deliver to the active ones
@@ -451,7 +474,8 @@ class ContinuousEngine:
         # no free slot for the head request: wait for an eviction
 
     def _admit_one(
-        self, req: _Request, total: int, adopt: List[int], start: int
+        self, req: _Request, total: int, adopt: List[int], start: int,
+        queue_s: float,
     ) -> None:
         prompt, budget = req.prompt, req.budget
         n = len(prompt)
@@ -470,32 +494,35 @@ class ContinuousEngine:
             slot = self._free_slots.pop()
             if not self._mgr.admit(slot, total, prefix_blocks=adopt):
                 raise RuntimeError("can_admit passed but admit failed")
-            suf = np.full((1, bucket - start), self.tok.pad_id, np.int64)
-            suf[0, : n - start] = prompt[start:]
-            row = self._upload(self._mgr.tables[slot])
-            logits, self._cache = self.api.prefill_suffix(
-                self.model, self._upload(suf), start, row, self._cache, bs,
-                lengths=self._upload(np.array([n - start])),
-            )
+            with span("ContinuousEngine.prefill.model"):
+                suf = np.full((1, bucket - start), self.tok.pad_id, np.int64)
+                suf[0, : n - start] = prompt[start:]
+                row = self._upload(self._mgr.tables[slot])
+                logits, self._cache = self.api.prefill_suffix(
+                    self.model, self._upload(suf), start, row, self._cache, bs,
+                    lengths=self._upload(np.array([n - start])),
+                )
             dense = None
             self.stats.prefix_hits += 1
             self.stats.prefill_tokens_saved += start
         else:
             if self._prefix_enabled:
                 self.stats.prefix_misses += 1
-            toks = np.full((1, bucket), self.tok.pad_id, np.int64)
-            toks[0, :n] = prompt
-            batch: Dict[str, Any] = {
-                "tokens": self._upload(toks),
-                "lengths": self._upload(np.array([n])),
-            }
-            if self.cfg.family == "vlm":  # the vision frontend is a stub
-                batch["patch_embeds"] = torch.zeros(
-                    (1, self.cfg.n_img_tokens, self.cfg.d_model),
-                    dtype=torch.float32, device=dev)
-            logits, dense = self.api.prefill(self.model, batch,
-                                             max_len=self.spec.max_len)
-        first = self._first_token(logits[0], req.seed)
+            with span("ContinuousEngine.prefill.model"):
+                toks = np.full((1, bucket), self.tok.pad_id, np.int64)
+                toks[0, :n] = prompt
+                batch: Dict[str, Any] = {
+                    "tokens": self._upload(toks),
+                    "lengths": self._upload(np.array([n])),
+                }
+                if self.cfg.family == "vlm":  # the vision frontend is a stub
+                    batch["patch_embeds"] = torch.zeros(
+                        (1, self.cfg.n_img_tokens, self.cfg.d_model),
+                        dtype=torch.float32, device=dev)
+                logits, dense = self.api.prefill(self.model, batch,
+                                                 max_len=self.spec.max_len)
+        with span("ContinuousEngine.prefill.first_token"):
+            first = self._first_token(logits[0], req.seed)
         now = time.perf_counter()
         prefill_s = now - t0
         self.stats.prefills += 1
@@ -509,25 +536,29 @@ class ContinuousEngine:
             # blocks (the suffix KV is resident and exact), then let go.
             if slot is not None:
                 if self._index is not None:
-                    self._index.publish(prompt, self._mgr.slot_blocks(slot), n)
+                    with span("ContinuousEngine.prefix_publish"):
+                        self._index.publish(prompt, self._mgr.slot_blocks(slot), n)
                 self._mgr.release(slot)
                 self._free_slots.append(slot)
                 self._tables_dirty = True
             self.stats.completed += 1
-            req.future.set_result(self._result([first], n, 0, prefill_s, 0.0))
+            req.future.set_result(self._result([first], n, 0, prefill_s, 0.0,
+                                               queue_s))
             return
 
         if slot is None:
             slot = self._free_slots.pop()
             if not self._mgr.admit(slot, total):
                 raise RuntimeError("can_admit passed but admit failed")
-            row = self._upload(self._mgr.tables[slot])
-            self._cache = self.api.paged_prefill_write(self._cache, dense, row, bs)
+            with span("ContinuousEngine.prefill.cache_write"):
+                row = self._upload(self._mgr.tables[slot])
+                self._cache = self.api.paged_prefill_write(self._cache, dense, row, bs)
         if self._index is not None:
             # publish every full-block prefix: decode writes land in the
             # partial/fresh tail blocks, never in published ones
-            self._index.publish(prompt, self._mgr.slot_blocks(slot), n)
-        seq = _Seq(req.future, n, budget, req.t_submit, prefill_s, now)
+            with span("ContinuousEngine.prefix_publish"):
+                self._index.publish(prompt, self._mgr.slot_blocks(slot), n)
+        seq = _Seq(req.future, n, budget, req.t_submit, prefill_s, now, queue_s)
         seq.tokens.append(first)
         self._cur[slot, 0] = first
         self._pos[slot] = self._offset + n
@@ -592,56 +623,65 @@ class ContinuousEngine:
         if self.decode == "graph" and key != self._graph_key:
             self._capture()
             self._graph_key = key
-        if self._tables_dirty:
-            self._tables_dev.copy_(torch.from_numpy(self._mgr.tables))
-            self._tables_dirty = False
-        self._lane_cur.copy_(torch.from_numpy(self._cur))
-        self._lane_pos.copy_(torch.from_numpy(self._pos))
-        if not self.scfg.greedy:
-            self._lane_seed.copy_(torch.from_numpy(self._seeds.view(np.int32)))
-            self._lane_idx.copy_(torch.from_numpy(self._idx.view(np.int32)))
-        if self.decode == "graph":
-            self._graph.replay()
-            self.replays += 1
-        else:
-            self._lane_step()
-        return self._lane_next.cpu().numpy()  # the one host sync per step
+        with span("ContinuousEngine.decode.lanes_in"):
+            if self._tables_dirty:
+                self._tables_dev.copy_(torch.from_numpy(self._mgr.tables))
+                self._tables_dirty = False
+            self._lane_cur.copy_(torch.from_numpy(self._cur))
+            self._lane_pos.copy_(torch.from_numpy(self._pos))
+            if not self.scfg.greedy:
+                self._lane_seed.copy_(torch.from_numpy(self._seeds.view(np.int32)))
+                self._lane_idx.copy_(torch.from_numpy(self._idx.view(np.int32)))
+        with span("ContinuousEngine.decode.replay"):
+            if self.decode == "graph":
+                self._graph.replay()
+                self.replays += 1
+            else:
+                self._lane_step()
+        with span("ContinuousEngine.decode.readback"):
+            return self._lane_next.cpu().numpy()  # the one host sync per step
+
+    def _decode_eager(self) -> np.ndarray:
+        """One step on fresh tensors → (S,) next tokens."""
+        with span("ContinuousEngine.decode.lanes_in"):
+            if self._tables_dirty:
+                self._tables_dev = self._upload(self._mgr.tables)
+                self._tables_dirty = False
+            cur, pos = self._upload(self._cur), self._upload(self._pos)
+            seeds = index = None
+            if not self.scfg.greedy:
+                seeds, index = self._upload_u32(self._seeds), self._upload_u32(self._idx)
+        with span("ContinuousEngine.decode.replay"):
+            logits, self._cache = self.api.decode_step_paged(
+                self.model, cur, pos, self._tables_dev, self._cache,
+                self.spec.block_size,
+            )
+            nxt = self._next(logits, seeds, index)
+        with span("ContinuousEngine.decode.readback"):
+            return nxt.cpu().numpy()  # the one host sync per step: (S,) token ids
 
     def _decode_once(self) -> None:
         """One batched paged decode step + host-side emit/evict."""
-        with torch.profiler.record_function("ContinuousEngine.decode"):
-            if self.decode != "eager":
-                nxt = self._decode_lanes()
-            else:
-                if self._tables_dirty:
-                    self._tables_dev = self._upload(self._mgr.tables)
-                    self._tables_dirty = False
-                logits, self._cache = self.api.decode_step_paged(
-                    self.model, self._upload(self._cur), self._upload(self._pos),
-                    self._tables_dev, self._cache, self.spec.block_size,
-                )
-                seeds = index = None
-                if not self.scfg.greedy:
-                    seeds, index = self._upload_u32(self._seeds), self._upload_u32(self._idx)
-                # the one host sync per step: (S,) token ids
-                nxt = self._next(logits, seeds, index).cpu().numpy()
+        with span("ContinuousEngine.decode"):
+            nxt = self._decode_lanes() if self.decode != "eager" else self._decode_eager()
         now = time.perf_counter()
         self.stats.steps += 1
-        for slot, seq in list(self._active.items()):
-            tok = int(nxt[slot])
-            seq.fed += 1
-            seq.tokens.append(tok)
-            with self._lock:
-                self._itl_ms.append((now - seq.t_last) * 1e3)
-            seq.t_last = now
-            self.stats.tokens_out += 1
-            self.stats.decode_tokens += 1
-            if tok == self.tok.eos_id or len(seq.tokens) >= seq.budget:
-                self._evict(slot, seq, now)
-            else:
-                self._cur[slot, 0] = tok
-                self._pos[slot] += 1
-                self._idx[slot] = len(seq.tokens)
+        with span("ContinuousEngine.emit"):
+            for slot, seq in list(self._active.items()):
+                tok = int(nxt[slot])
+                seq.fed += 1
+                seq.tokens.append(tok)
+                with self._lock:
+                    self._itl_ms.append((now - seq.t_last) * 1e3)
+                seq.t_last = now
+                self.stats.tokens_out += 1
+                self.stats.decode_tokens += 1
+                if tok == self.tok.eos_id or len(seq.tokens) >= seq.budget:
+                    self._evict(slot, seq, now)
+                else:
+                    self._cur[slot, 0] = tok
+                    self._pos[slot] += 1
+                    self._idx[slot] = len(seq.tokens)
 
     def _evict(self, slot: int, seq: _Seq, now: float) -> None:
         self._mgr.release(slot)
@@ -653,10 +693,10 @@ class ContinuousEngine:
         self.stats.completed += 1
         seq.future.set_result(
             self._result(seq.tokens, seq.prompt_len, seq.fed, seq.prefill_s,
-                         now - seq.t_first)
+                         now - seq.t_first, seq.queue_s)
         )
 
-    def _result(self, tokens, prompt_len, steps, prefill_s, decode_s):
+    def _result(self, tokens, prompt_len, steps, prefill_s, decode_s, queue_s):
         return GenerationResult(
             text=self.tok.decode(tokens),
             token_ids=list(tokens),
@@ -664,6 +704,7 @@ class ContinuousEngine:
             steps=steps,
             prefill_s=prefill_s,
             decode_s=decode_s,
+            queue_s=queue_s,
         )
 
     # -- accounting ----------------------------------------------------------

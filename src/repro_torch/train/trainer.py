@@ -24,6 +24,18 @@ The batches hold tokens only, as the reference's
 do, so the encoder-decoder family, whose loss also reads audio frames,
 cannot be trained here (:func:`require_token_model` raises); its loss and
 gradients run through ``build_model(cfg).loss`` and autograd.
+
+Each step runs in spans (:func:`repro_torch.runtime.trace.span`: a
+``torch.profiler.record_function`` while a profiler runs, a shared null
+context costing under 1 us otherwise), all on the calling thread:
+``Trainer.batch`` (the step's batch; inside it the dataset's
+``IndexedDataset.fetch`` and ``IndexedDataset.tokenize``, then
+``Trainer.upload``), ``Trainer.step`` (the train step, forward, backward and
+AdamW; on dense models it holds ``flash_attention.backward``, which the
+autograd engine may run on its own thread), ``Trainer.readback`` (the loss,
+gradient norm and learning rate read back), ``Trainer.heartbeat`` and, where
+one follows the step, ``Trainer.checkpoint``.  A step's record holds
+``batch_s``, the host seconds of its batch, beside ``dt``.
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ from ..models.weights import (
     state_to_reference,
 )
 from ..runtime.fault import Heartbeat
+from ..runtime.trace import span
 from .loop import make_train_state, make_train_step
 from .optimizer import AdamWConfig
 
@@ -168,11 +181,12 @@ class Trainer:
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """Step ``step``'s batch of this dp rank, on the trainer's device."""
         batch_np = self.dataset.batch_for(self.sampler, step, self.dp_rank, self.n_dp)
-        batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
-        if self.mesh is None:
-            return batch
-        pls = batch_shardings(self.mesh, batch)
-        return {k: distribute(v, self.mesh, pls[k]) for k, v in batch.items()}
+        with span("Trainer.upload"):
+            batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch_np.items()}
+            if self.mesh is None:
+                return batch
+            pls = batch_shardings(self.mesh, batch)
+            return {k: distribute(v, self.mesh, pls[k]) for k, v in batch.items()}
 
     # -- run ----------------------------------------------------------------
 
@@ -189,8 +203,10 @@ class Trainer:
         ``die_at_step`` simulates a node failure: the trainer stops without
         a final checkpoint, like a SIGKILL (recovery must come from the
         last periodic checkpoint).  A step's record holds its ``loss``,
-        ``grad_norm``, ``lr`` and ``dt`` (host seconds to the loss read
-        back), and ``ckpt_s`` where a checkpoint followed it.
+        ``grad_norm``, ``lr``, ``dt`` (host seconds from the batch on the
+        device to the loss read back) and ``batch_s`` (host seconds of the
+        batch: fetch, tokenize, upload), and ``ckpt_s`` where a checkpoint
+        followed it.
         """
         with use_mesh(self.mesh):
             return self._run(until_step, state, on_step, die_at_step)
@@ -203,19 +219,27 @@ class Trainer:
             start = int(state["step"])
         history = []
         for step in range(start, until):
-            batch = self.batch(step)
+            t_batch = time.perf_counter()
+            with span("Trainer.batch"):
+                batch = self.batch(step)
             t0 = time.perf_counter()
-            state, metrics = self._step_fn(state, batch)
-            loss = float(whole(metrics["loss"]))
+            with span("Trainer.step"):
+                state, metrics = self._step_fn(state, batch)
+            with span("Trainer.readback"):
+                loss = float(whole(metrics["loss"]))
+                grad_norm = float(whole(metrics["grad_norm"]))
+                lr = float(whole(metrics["lr"]))
             rec = {
                 "step": step,
                 "loss": loss,
-                "grad_norm": float(whole(metrics["grad_norm"])),
-                "lr": float(whole(metrics["lr"])),
+                "grad_norm": grad_norm,
+                "lr": lr,
                 "dt": time.perf_counter() - t0,
+                "batch_s": t0 - t_batch,
             }
             history.append(rec)
-            self.heartbeat.beat(step)
+            with span("Trainer.heartbeat"):
+                self.heartbeat.beat(step)
             if on_step:
                 on_step(step, rec)
             done = step + 1
@@ -223,10 +247,11 @@ class Trainer:
                 return done, state, history  # crashed: no checkpoint written
             if done % self.tcfg.ckpt_every == 0 or done == until:
                 t0 = time.perf_counter()
-                named = state_to_reference(state)   # every rank gathers
-                if self._rank == 0 or self.mesh is None:
-                    self.ckpt.save(done, named, meta={"loss": loss}, blocking=True)
-                if self.mesh is not None:
-                    torch.distributed.barrier()    # written before anyone reads
+                with span("Trainer.checkpoint"):
+                    named = state_to_reference(state)   # every rank gathers
+                    if self._rank == 0 or self.mesh is None:
+                        self.ckpt.save(done, named, meta={"loss": loss}, blocking=True)
+                    if self.mesh is not None:
+                        torch.distributed.barrier()    # written before anyone reads
                 rec["ckpt_s"] = time.perf_counter() - t0
         return until, state, history
